@@ -1,0 +1,325 @@
+"""Port of ``cuking_tpu/models/king.py``: KingEngine, all-pairs KING over
+packed planes for one shard, in PyTorch.
+
+* The pair matrix is swept in fixed-size **sample panels** (default 1024):
+  for every (i-panel, j-panel) pair of the shard with any candidate i < j,
+  one step runs the count kernel, the fp32 epilogue, the mask
+  ``valid & i < j & kin > threshold`` and the compaction.
+* The planes are uploaded once, as an int32 view of the uint32 words, and
+  the count kernel reads each panel in place through row offsets (the
+  indexed entry); a diagonal panel pair sets ``tri`` so the CUDA kernel skips
+  tiles wholly below the diagonal.
+* Sample storage follows the reference's shard layout: the Submatrix i-range
+  stored before the j-range (cuking.cu:171-175), each padded to a panel
+  multiple with all-missing samples.
+* Results: hits go into ONE device buffer (ops/compaction.py) fetched once
+  after the sweep.  ``nonzero`` gives each step's exact hit count, so the
+  buffer grows in place (pow2, capped at ``max_results``) where the TPU
+  engine re-ran the sweep at a larger static capacity; the outputs are
+  identical either way.  A total above ``max_results`` raises
+  ResourceExhausted (cuking.cu:747-751) and the host sorts by (i, j, kin)
+  (cuking.cu:761-765).
+
+Kernels (``KingConfig.kernel``): ``cuda`` (the hand-written count kernel,
+ops/king_cuda.py), ``matmul`` (the plain PyTorch int8 product,
+ops/king_mm.py) or ``auto`` (``cuda`` on a CUDA device, ``matmul`` on the
+CPU).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from cuking_tpu_torch.ops import bitset
+from cuking_tpu_torch.ops.bitset import PlaneLayout
+from cuking_tpu_torch.ops.compaction import ResultBuffer, compact_hits
+from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda_indexed
+from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
+from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+from cuking_tpu_torch.parallel.submatrix import Submatrix
+from cuking_tpu_torch.utils.status import InvalidArgumentError
+from cuking_tpu_torch.utils.stopwatch import StageLogger
+
+DEFAULT_KIN_THRESHOLD = 0.0884  # 2nd degree or closer (cuking.cu:43-45)
+DEFAULT_MAX_RESULTS = 10 << 20  # cuking.cu:40-41
+# Initial device result-buffer slots (24 B each): smaller than max_results
+# so a hit-light sweep doesn't allocate the reference's full 252 MiB.
+DEFAULT_RESULT_CAPACITY = 1 << 20
+KERNELS = ("auto", "cuda", "matmul")
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return (a + b - 1) // b
+
+
+@dataclass(frozen=True)
+class KingConfig:
+    """Runtime knobs; defaults mirror the reference's flags (cuking.cu:27-52)."""
+
+    kin_threshold: float = DEFAULT_KIN_THRESHOLD
+    max_results: int = DEFAULT_MAX_RESULTS
+    panel: int = 1024               # samples per panel (pair tile edge)
+    kernel: str = "auto"            # auto | cuda | matmul
+    site_chunk_words: int = 128     # words per site chunk, matmul kernel only
+    result_capacity: int = 0        # initial result-buffer slots (0 = auto)
+    device: str = "cuda"
+    verbose: bool = False
+
+    def resolved_result_capacity(self) -> int:
+        """Initial device result-buffer capacity: the explicit knob, else
+        min(max_results, DEFAULT_RESULT_CAPACITY)."""
+        return self.result_capacity or max(
+            1, min(self.max_results, DEFAULT_RESULT_CAPACITY)
+        )
+
+
+def resolve_kernel_name(config: KingConfig) -> str:
+    """'auto' → 'cuda' on a CUDA device, 'matmul' elsewhere; 'cuda' on a
+    non-CUDA device is an InvalidArgument."""
+    if config.kernel not in KERNELS:
+        raise InvalidArgumentError(f"Unknown kernel: {config.kernel}")
+    device_type = torch.device(config.device).type
+    if config.kernel == "auto":
+        return "cuda" if device_type == "cuda" else "matmul"
+    if config.kernel == "cuda" and device_type != "cuda":
+        raise InvalidArgumentError(
+            f"The cuda kernel needs a CUDA device, not {config.device}"
+        )
+    return config.kernel
+
+
+@dataclass
+class ResultSet:
+    """Thresholded pairs, globally indexed, sorted by (i, j, kin)."""
+
+    i_idx: np.ndarray   # int32 global sample indices
+    j_idx: np.ndarray
+    kin: np.ndarray     # float32
+    ibs0: np.ndarray    # int32
+    ibs1: np.ndarray
+    ibs2: np.ndarray
+
+    def __len__(self) -> int:
+        return len(self.i_idx)
+
+    @classmethod
+    def concat_and_sort(cls, parts: list["ResultSet"]) -> "ResultSet":
+        if not parts:
+            z = np.zeros(0, np.int32)
+            return cls(z, z, np.zeros(0, np.float32), z.copy(), z.copy(), z.copy())
+        fields = {
+            name: np.concatenate([getattr(p, name) for p in parts])
+            for name in ("i_idx", "j_idx", "kin", "ibs0", "ibs1", "ibs2")
+        }
+        # Sort by (i, j, kin) ascending, like cuking.cu:761-765.
+        order = np.lexsort((fields["kin"], fields["j_idx"], fields["i_idx"]))
+        return cls(**{k: v[order] for k, v in fields.items()})
+
+
+class PanelStorage:
+    """Padded on-host plane storage in the reference's shard layout.
+
+    The Submatrix i-range is stored first, then (for off-diagonal shards) the
+    j-range (cuking.cu:171-175); each section is padded up to a panel multiple
+    with all-missing samples so every panel has the same shape.
+    """
+
+    def __init__(self, layout: PlaneLayout, submatrix: Submatrix, panel: int):
+        self.layout = layout
+        self.submatrix = submatrix
+        self.panel = panel
+        # Bumped by mutators (ingest); lets device-side caches detect stale
+        # uploads instead of silently computing on pre-ingest planes.
+        self.version = 0
+        self.nr = submatrix.num_rows
+        self.nc = submatrix.num_cols
+        self.nr_pad = max(_ceil_div(self.nr, panel), 1) * panel
+        if submatrix.is_diagonal:
+            self.nc_pad = self.nr_pad
+            self.j_store_base = 0
+            total = self.nr_pad
+        else:
+            self.nc_pad = max(_ceil_div(self.nc, panel), 1) * panel
+            self.j_store_base = self.nr_pad
+            total = self.nr_pad + self.nc_pad
+        self.planes = bitset.allocate_planes(total, layout)
+
+    def mark_mutated(self) -> None:
+        """Callers that write into ``planes`` (ingest) record it here so the
+        engine re-uploads instead of sweeping a stale device copy."""
+        self.version += 1
+
+    def contains(self, global_idx: np.ndarray) -> np.ndarray:
+        """True for samples stored in this shard (cuking.cu:675-678)."""
+        return self.submatrix.contains(global_idx)
+
+    def storage_offsets(self, global_idx: np.ndarray) -> np.ndarray:
+        """Global sample index → padded storage row; callers must only pass
+        indices with ``contains(idx)`` true (cf. cuking.cu:675-678).
+        Branch-free arithmetic rather than np.where: this runs over
+        ~10⁷-element index arrays per Parquet file at gnomAD ingest scale."""
+        sm = self.submatrix
+        global_idx = np.asarray(global_idx)
+        in_j = (global_idx >= sm.i_end).astype(global_idx.dtype)
+        return (
+            global_idx
+            - sm.i_begin
+            + in_j * (self.j_store_base - sm.j_begin + sm.i_begin)
+        )
+
+    @property
+    def num_i_panels(self) -> int:
+        return self.nr_pad // self.panel
+
+    @property
+    def num_j_panels(self) -> int:
+        return self.nc_pad // self.panel
+
+    def i_panel(self, k: int) -> tuple[int, int, int]:
+        """→ (storage offset, global base index, valid sample count)."""
+        off = k * self.panel
+        return off, self.submatrix.i_begin + off, max(0, min(self.panel, self.nr - off))
+
+    def j_panel(self, k: int) -> tuple[int, int, int]:
+        off = k * self.panel
+        return (
+            self.j_store_base + off,
+            self.submatrix.j_begin + off,
+            max(0, min(self.panel, self.nc - off)),
+        )
+
+
+class KingEngine:
+    """Single-process KING engine for one shard (whole matrix if
+    split_factor=1) on ``config.device``."""
+
+    def __init__(
+        self,
+        storage: PanelStorage,
+        config: KingConfig | None = None,
+        logger: StageLogger | None = None,
+    ):
+        self.config = config or KingConfig()
+        self.storage = storage
+        self.logger = logger or StageLogger(enabled=self.config.verbose)
+        self.device = torch.device(self.config.device)
+        self.kernel_name = resolve_kernel_name(self.config)
+        self._planes_dev_cache = None
+        self._planes_dev_version = None
+
+    @property
+    def planes_dev(self) -> torch.Tensor:
+        """Device-resident int32 view of the planes; uploaded once per
+        storage version (ingest bumps it through ``mark_mutated``; direct
+        writes to ``storage.planes`` need ``refresh_planes()``)."""
+        version = self.storage.version
+        if self._planes_dev_cache is None or self._planes_dev_version != version:
+            self._planes_dev_cache = None  # free the old copy before uploading
+            host = torch.from_numpy(self.storage.planes.view(np.int32))
+            self._planes_dev_cache = host.to(self.device)
+            self._planes_dev_version = version
+        return self._planes_dev_cache
+
+    def refresh_planes(self) -> None:
+        self._planes_dev_cache = None
+
+    @classmethod
+    def from_genotypes(
+        cls,
+        genotypes: np.ndarray,
+        config: KingConfig | None = None,
+        submatrix: Submatrix | None = None,
+        words_multiple: int = bitset.DEFAULT_WORDS_MULTIPLE,
+    ) -> "KingEngine":
+        """Test/synthetic convenience: dense [N, S] genotypes → engine."""
+        config = config or KingConfig()
+        n, s = genotypes.shape
+        submatrix = submatrix or Submatrix.create(n, 1, 0)
+        layout = PlaneLayout.create(s, words_multiple=words_multiple)
+        storage = PanelStorage(layout, submatrix, config.panel)
+        stored = submatrix.stored_sample_indices()
+        offsets = storage.storage_offsets(stored)
+        storage.planes[:, offsets, :] = bitset.pack_genotypes(
+            genotypes[stored], layout
+        )
+        return cls(storage, config)
+
+    def _panel_pair_params(self) -> np.ndarray:
+        """[num_steps, 6] int32 schedule: (i_off, j_off, gi_base, gj_base,
+        ni_valid, nj_valid) for every (i-panel, j-panel) pair with any
+        candidate i<j, mirroring the shard's pair set (cuking.cu:196-201)."""
+        st = self.storage
+        diagonal = st.submatrix.is_diagonal
+        rows = []
+        for ip in range(st.num_i_panels):
+            i_off, gi_base, ni_valid = st.i_panel(ip)
+            if ni_valid == 0:
+                continue
+            jp_start = ip if diagonal else 0
+            for jp in range(jp_start, st.num_j_panels):
+                j_off, gj_base, nj_valid = st.j_panel(jp)
+                if nj_valid == 0:
+                    continue
+                rows.append((i_off, j_off, gi_base, gj_base, ni_valid, nj_valid))
+        return np.asarray(rows, dtype=np.int32).reshape(-1, 6)
+
+    def _counts(self, planes: torch.Tensor, i_off: int, j_off: int,
+                tri: bool) -> KingCounts:
+        panel = self.config.panel
+        if self.kernel_name == "cuda":
+            return panel_counts_cuda_indexed(planes, i_off, j_off, tri, panel)
+        return panel_counts_matmul(
+            planes[:, i_off : i_off + panel],
+            planes[:, j_off : j_off + panel],
+            site_chunk_words=self.config.site_chunk_words,
+        )
+
+    def run(self) -> ResultSet:
+        """Sweeps all (i-panel, j-panel) pairs of the shard and returns the
+        thresholded, sorted results."""
+        cfg = self.config
+        st = self.storage
+        planes = self.planes_dev
+        params = self._panel_pair_params()
+        threshold = torch.tensor(cfg.kin_threshold, dtype=torch.float32,
+                                 device=self.device)
+        local = torch.arange(cfg.panel, dtype=torch.int32, device=self.device)
+        # lj - li for every pair of the panel: global i < j  <=>
+        # lj - li > gi_base - gj_base.
+        lj_minus_li = local[None, :] - local[:, None]
+        hits = ResultBuffer(cfg.resolved_result_capacity(), cfg.max_results,
+                            self.device, self.logger)
+        self.logger.begin(
+            f"Running KING kernel for {st.nr} x {st.nc} matrix"
+            f" ({len(params)} panel-pair steps)..."
+        )
+        for i_off, j_off, gi_base, gj_base, ni, nj in params.tolist():
+            # A diagonal panel pair (same global base) lets the CUDA kernel
+            # skip lower-triangle tiles; the i<j mask discards them anyway.
+            counts = self._counts(planes, i_off, j_off, gi_base == gj_base)
+            res = king_from_counts(counts)
+            # Strict upper triangle on GLOBAL indices (cuking.cu:199) and
+            # strict > threshold (cuking.cu:297); NaN kin never passes.
+            mask = (lj_minus_li[:ni, :nj] > gi_base - gj_base) & (
+                res.kin[:ni, :nj] > threshold
+            )
+            hits.append(compact_hits(mask, gi_base, gj_base, res))
+        self.logger.end("king_kernel")
+
+        total = hits.count
+        self.logger.print(f"Processing {total} results...")
+        if total == 0:
+            return ResultSet.concat_and_sort([])
+        arr = hits.to_host()
+        part = ResultSet(
+            i_idx=arr[0],
+            j_idx=arr[1],
+            kin=arr[2].view(np.float32),
+            ibs0=arr[3],
+            ibs1=arr[4],
+            ibs2=arr[5],
+        )
+        return ResultSet.concat_and_sort([part])

@@ -1,0 +1,148 @@
+"""Port of ``cuking_tpu/utils/hbm.py`` (the engine fit only): fail before a
+device out-of-memory error, with a fix in hand.
+
+The reference sizes its allocations against a known GPU memory envelope and
+prescribes ``--split_factor`` as the memory-relief mechanism
+(cuking.cu:513-517; README.md:96-98).  The engine's equivalent: compute the
+device-resident footprint of a shard's sweep UP FRONT — bit planes, the
+result buffer and the per-step transients — compare it with the device's
+free memory, and when it doesn't fit, raise InvalidArgument naming the
+**minimal split factor that does**.
+
+The limit is ``torch.cuda.mem_get_info`` on a CUDA device; a CPU device has
+none and the check is skipped.  ``CUKING_HBM_BYTES_LIMIT`` overrides the
+query for tests and for operators who want headroom for a colocated process.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from cuking_tpu_torch.utils.status import InvalidArgumentError
+
+# Fraction of the free device memory the sweep may plan to use: the caching
+# allocator rounds blocks up and fragments.
+_USABLE_FRACTION = 0.92
+
+# Device bytes per pair of one panel-pair step at the step's peak: the six
+# int32 counters (or the matmul kernel's int32 Gram and int8 indicators), the
+# float32 epilogue temporaries, the mask, and — when every pair is a hit —
+# the int64 nonzero indices and the gathered hit rows.  Measured peaks at
+# panel 1024 on an H100 were 109 (cuda kernel, few hits) to 253 (matmul
+# kernel, all hits) bytes per pair (PERF.md); this covers the worst.
+TRANSIENT_BYTES_PER_PAIR = 256
+
+
+def device_bytes_limit(device) -> int | None:
+    """Usable bytes on ``device``, or None when unknowable (CPU).
+
+    Env override ``CUKING_HBM_BYTES_LIMIT`` (raw bytes) wins when set."""
+    env = os.environ.get("CUKING_HBM_BYTES_LIMIT")
+    if env:
+        try:
+            return int(env)
+        except ValueError:
+            raise InvalidArgumentError(
+                f"CUKING_HBM_BYTES_LIMIT must be a raw byte count, got {env!r}"
+            )
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    free, _total = torch.cuda.mem_get_info(device)
+    return int(free * _USABLE_FRACTION)
+
+
+def _ceil_to(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+def plane_bytes(num_stored_rows: int, words: int, panel: int = 1) -> int:
+    """Device bytes for the [2, rows, W] 32-bit bit planes, rows padded to a
+    panel multiple per range (PanelStorage layout)."""
+    return 2 * _ceil_to(max(num_stored_rows, 1), panel) * words * 4
+
+
+def shard_plane_bytes(
+    num_samples: int, split_factor: int, words: int, panel: int
+) -> int:
+    """Worst-shard plane footprint at a given split factor: an off-diagonal
+    shard stores row range + column range, each a full-size block padded to a
+    panel multiple (cuking.cu:158-175, 507-517)."""
+    block = -(-num_samples // split_factor)
+    if split_factor == 1:
+        return plane_bytes(num_samples, words, panel)
+    return plane_bytes(block, words, panel) + plane_bytes(block, words, panel)
+
+
+def sweep_buffer_bytes(config) -> int:
+    """Device bytes for the engine sweep beyond the planes: the [6, capacity]
+    int32 result buffer at its worst capacity (max_results), counted twice
+    because growing it copies the old buffer into the new one, plus one
+    step's transients (``TRANSIENT_BYTES_PER_PAIR`` per pair of the panel)."""
+    per_slot = 6 * 4  # i/j idx i32, kin f32, ibs0/1/2 i32
+    worst_capacity = max(config.resolved_result_capacity(), config.max_results)
+    result_buffer = 2 * worst_capacity * per_slot
+    transients = TRANSIENT_BYTES_PER_PAIR * config.panel * config.panel
+    return result_buffer + transients
+
+
+def engine_plane_bytes(submatrix, words: int, panel: int) -> int:
+    """Exact plane footprint of one shard's PanelStorage: the i-range and
+    (off-diagonal) j-range are each padded to a panel multiple separately."""
+    b = plane_bytes(submatrix.num_rows, words, panel)
+    if not submatrix.is_diagonal:
+        b += plane_bytes(submatrix.num_cols, words, panel)
+    return b
+
+
+def check_engine_fit(
+    num_samples: int,
+    words: int,
+    submatrix,
+    config,
+    split_factor: int,
+    bytes_limit: int | None = None,
+) -> None:
+    """Raises InvalidArgument naming the minimal --split_factor that fits
+    when this shard's sweep footprint exceeds the device's memory.
+
+    No-op when the limit is unknowable (CPU devices)."""
+    limit = device_bytes_limit(config.device) if bytes_limit is None else bytes_limit
+    if limit is None:
+        return
+    planes_b = engine_plane_bytes(submatrix, words, config.panel)
+    buffers_b = sweep_buffer_bytes(config)
+    need = planes_b + buffers_b
+    if need <= limit:
+        return
+
+    def worst(k: int) -> int:
+        return shard_plane_bytes(num_samples, k, words, config.panel) + buffers_b
+
+    # Splitting shrinks only the plane term; the result-buffer term is
+    # k-independent.  If not even maximal splitting fits, say so instead of
+    # prescribing a split factor that cannot work.
+    if worst(num_samples) > limit:
+        raise InvalidArgumentError(
+            f"Shard needs {need >> 20} MiB of device memory but only "
+            f"{limit >> 20} MiB is available, and no --split_factor can "
+            f"relieve it: the {buffers_b >> 20} MiB worst-case result "
+            "buffers alone don't fit. Lower --max_results/"
+            "--result_capacity, or use a device with more memory."
+        )
+    lo, hi = split_factor, num_samples  # worst(hi) <= limit
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if worst(mid) > limit:
+            lo = mid
+        else:
+            hi = mid
+    raise InvalidArgumentError(
+        f"Shard needs {need >> 20} MiB of device memory "
+        f"({planes_b >> 20} MiB bit planes + "
+        f"{buffers_b >> 20} MiB sweep buffers) but only "
+        f"{limit >> 20} MiB is available; increase --split_factor to at "
+        f"least {hi}."
+    )
