@@ -21,16 +21,35 @@ Phases (any failure exits nonzero):
    Kernel launch counts are read from this run.
 4. Keep-all parity at 4,096 x 100,000 (8,386,560 hits, which grows the
    result buffer): the cuda and matmul engines give identical results.
-5. The CLI end to end on a synthetic Parquet input (needs pyarrow): split 1,
-   the three shards of split 2 merged, and the CPU plain path, all equal.
+5. The CLI end to end on a synthetic Parquet input (pyarrow is required):
+   split 1, the three shards of split 2 merged, and the CPU plain path, all
+   equal.
+6. The ring at full width: ``all_pairs_sharded`` over 4 positions, all on
+   ``cuda:0``, on phase 3's planes; it must return exactly the engine's
+   ResultSet.  The positions share one card, so its time is a check, not a
+   scaling figure.
+7. Keep-all rings at 4,096 x 100,000 (phase 4's planes): a 3-position ring
+   (odd D, no wrap step), the three shards of split 2 on a 2-position mesh
+   (offset triangle and rectangular ring), and a forced auto-retry from
+   ``capacity_per_device=1<<16``; each must equal phase 4's cuda engine.
+8. The CLI on the mesh, on phase 5's input: ``--use_mesh --device
+   cuda:0,cuda:0`` at split 1 and split 2 merged, and ``--distributed`` in a
+   subprocess (a world of 1 with NCCL, 4 positions on cuda:0); both must
+   equal phase 5's split-1 rows.
+9. Dense ``king()`` at 2,048 x 100,000 on the card against the plain version
+   on the card (kin as uint32 bits, NaN included), and the popcount engine
+   at 1,024 x 10,000 against the cuda engine.
 
-The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
+Every count of kernel launches is set to 0 just before a path runs and read
+just after.  The second-to-last line is the kernels' JSON record; the last
+line is ``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -211,7 +230,7 @@ def phase_kernel(card: str) -> dict:
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_engine(card: str) -> int:
+def phase_engine(card: str):
     import torch
 
     from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
@@ -264,13 +283,14 @@ def phase_engine(card: str) -> int:
         f"ibs2 == defined sites; {launches} kernel launches")
     say(f"phase 3: sweep {sweep_s:.3f} s, {pairs / sweep_s:,.0f} pairs/s, "
         f"peak device memory {peak / 2**20:.0f} MiB ({card})")
-    return launches
+    return launches, storage, rs
 
 
-def phase_keep_all(card: str) -> None:
+def phase_keep_all(card: str):
     import torch
 
     from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
+    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.ops.bitset import PlaneLayout
     from cuking_tpu_torch.parallel.submatrix import Submatrix
 
@@ -279,15 +299,17 @@ def phase_keep_all(card: str) -> None:
     layout = PlaneLayout.create(SITES)
     storage = PanelStorage(layout, Submatrix.create(n, 1, 0), 1024)
     fill_random_planes(storage.planes, layout, rng)
-    results, times = {}, {}
+    results, times, launches = {}, {}, 0
     for kernel in ("cuda", "matmul"):
         engine = KingEngine(storage, KingConfig(kernel=kernel, device="cuda",
                                                 kin_threshold=-2.0))
         engine.planes_dev
         torch.cuda.synchronize()
+        king_cuda.launches = 0
         t = time.perf_counter()
         results[kernel] = engine.run()
         times[kernel] = time.perf_counter() - t
+        launches += king_cuda.launches
     a, b = results["cuda"], results["matmul"]
     check(len(a) == n * (n - 1) // 2, f"keep-all gave {len(a)} hits")
     for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
@@ -297,6 +319,8 @@ def phase_keep_all(card: str) -> None:
     say(f"phase 4: keep-all {n} x {SITES}: {len(a)} hits, cuda and matmul engines "
         f"identical (sweep incl. sort: cuda {times['cuda']:.3f} s, matmul "
         f"{times['matmul']:.3f} s, {card})")
+    check(launches > 0, "the keep-all engine launched no count kernel")
+    return launches, storage, a
 
 
 def _rows(output_uri: str) -> list:
@@ -309,13 +333,9 @@ def _rows(output_uri: str) -> list:
     return sorted(zip(cols[0], cols[1], kin_bits.tolist(), *cols[2:]))
 
 
-def phase_cli() -> None:
-    try:
-        import pyarrow  # noqa: F401
-    except ImportError:
-        say("phase 5: skipped: pyarrow is not installed, so the Parquet "
-            "round trip through the CLI cannot run here")
-        return
+def phase_cli(tmp: str):
+    import pyarrow  # noqa: F401  (the GPU machine has it; its absence fails)
+
     from cuking_tpu_torch import cli
     from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
     from cuking_tpu_torch.io.uri import Storage
@@ -324,28 +344,238 @@ def phase_cli() -> None:
 
     g = random_genotypes(1000, 10_000, missing_rate=0.05, seed=SEED,
                          num_related_pairs=5)
-    with tempfile.TemporaryDirectory() as tmp:
-        inp = f"{tmp}/in.parquet"
-        write_synthetic_input(Storage(), inp, g)
+    inp = f"{tmp}/in.parquet"
+    write_synthetic_input(Storage(), inp, g)
 
-        def run(out, *extra):
-            rc = cli.main(["--input_uri", inp, "--output_uri", out, "--quiet", *extra])
-            check(rc == 0, f"cli {' '.join(extra)} exited {rc}")
-
-        king_cuda.launches = 0
-        run(f"{tmp}/split1", "--device", "cuda")
-        for shard in range(3):
-            run(f"{tmp}/split2", "--device", "cuda", "--split_factor", "2",
+    king_cuda.launches = 0
+    run_cli(inp, f"{tmp}/split1", "--device", "cuda")
+    for shard in range(3):
+        run_cli(inp, f"{tmp}/split2", "--device", "cuda", "--split_factor", "2",
                 "--shard_index", str(shard))
-        launches = king_cuda.launches
-        run(f"{tmp}/cpu", "--device", "cpu", "--kernel", "matmul")
-        split1, split2, cpu = (_rows(f"{tmp}/{d}") for d in ("split1", "split2", "cpu"))
+    launches = king_cuda.launches
+    run_cli(inp, f"{tmp}/cpu", "--device", "cpu", "--kernel", "matmul")
+    split1, split2, cpu = (_rows(f"{tmp}/{d}") for d in ("split1", "split2", "cpu"))
     check(len(split1) >= 5, f"CLI found {len(split1)} related pairs, expected >= 5")
     check(split2 == split1, "merged split-2 shards differ from the split-1 run")
     check(cpu == split1, "the cuda run differs from the CPU plain-path run")
     check(launches > 0, "the CLI launched no count kernel")
     say(f"phase 5: CLI 1000 x 10000: {len(split1)} rows; split 2 merged == split 1 "
         f"== --device cpu --kernel matmul, bit for bit; {launches} kernel launches")
+    return launches, inp, split1
+
+
+def run_cli(inp: str, out: str, *extra) -> None:
+    from cuking_tpu_torch import cli
+
+    rc = cli.main(["--input_uri", inp, "--output_uri", out, "--quiet", *extra])
+    check(rc == 0, f"cli {' '.join(extra)} exited {rc}")
+
+
+def same_results(got, ref, what: str) -> None:
+    check(len(got) == len(ref), f"{what}: {len(got)} rows, expected {len(ref)}")
+    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
+        check(np.array_equal(getattr(got, f), getattr(ref, f)), f"{what}: {f} differs")
+    check(np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32)),
+          f"{what}: kin bits differ")
+
+
+def ring_kw(**kw) -> dict:
+    from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
+
+    return dict(kernel=panel_counts_cuda, indexed_kernel=panel_counts_cuda_indexed, **kw)
+
+
+def phase_ring(card: str, storage, engine_rs) -> int:
+    import torch
+
+    from cuking_tpu_torch.ops import king_cuda
+    from cuking_tpu_torch.parallel.ring import (
+        RingMesh,
+        _pad_and_shard,
+        all_pairs_presharded,
+        ring_output_to_resultset,
+    )
+
+    n = storage.submatrix.num_rows
+    mesh = RingMesh(["cuda:0"] * 4)
+    blocks, nd = _pad_and_shard(storage.planes, n, mesh, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    king_cuda.launches = 0
+    t = time.perf_counter()
+    out = all_pairs_presharded(blocks, n, **ring_kw(mesh=mesh, kin_threshold=0.0884))
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t
+    launches = king_cuda.launches
+    rs = ring_output_to_resultset(out)
+    same_results(rs, engine_rs, "4-position ring vs engine")
+    check(launches > 0, "the ring launched no count kernel")
+    pairs = n * (n - 1) // 2
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 6: ring of 4 positions on cuda:0 at {n} x {SITES}: exactly the "
+        f"engine's {len(rs)} pairs (kin bits, IBS equal); {launches} kernel launches")
+    say(f"phase 6: ring sweep {sweep_s:.3f} s, {pairs / sweep_s:,.0f} pairs/s, peak "
+        f"device memory {peak / 2**20:.0f} MiB ({card}); the 4 positions share one "
+        "card, so this checks correctness and is not a scaling figure")
+    return launches
+
+
+def phase_rings_keep_all(card: str, storage, engine_rs) -> int:
+    import torch
+
+    from cuking_tpu_torch.models.king import PanelStorage, ResultSet
+    from cuking_tpu_torch.ops import king_cuda
+    from cuking_tpu_torch.parallel.ring import (
+        RingMesh,
+        all_pairs_sharded,
+        ring_output_to_resultset,
+        submatrix_pairs_sharded,
+    )
+    from cuking_tpu_torch.parallel.submatrix import Submatrix
+
+    n = storage.submatrix.num_rows
+    launches = 0
+
+    def timed(what, fn):
+        nonlocal launches
+        king_cuda.launches = 0
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        launches += king_cuda.launches
+        check(king_cuda.launches > 0, f"{what}: no count kernel launched")
+        return result, time.perf_counter() - t
+
+    out, t3 = timed("3-position ring", lambda: all_pairs_sharded(
+        storage.planes, n, **ring_kw(mesh=RingMesh(["cuda:0"] * 3),
+                                     kin_threshold=-2.0, capacity_per_device=1 << 22)))
+    same_results(ring_output_to_resultset(out), engine_rs, "3-position ring")
+
+    mesh2 = RingMesh(["cuda:0"] * 2)
+    shard_storages = []
+    for shard in range(3):
+        sm = Submatrix.create(n, 2, shard)
+        st = PanelStorage(storage.layout, sm, 1024)
+        stored = sm.stored_sample_indices()
+        st.planes[:, st.storage_offsets(stored)] = storage.planes[:, stored]
+        shard_storages.append(st)
+    outs, t_split = timed("split-2 rings", lambda: [
+        submatrix_pairs_sharded(st, **ring_kw(mesh=mesh2, kin_threshold=-2.0,
+                                              capacity_per_device=1 << 22))
+        for st in shard_storages])
+    merged = ResultSet.concat_and_sort([ring_output_to_resultset(o) for o in outs])
+    same_results(merged, engine_rs, "split-2 shard rings merged")
+
+    out, t_retry = timed("retry ring", lambda: all_pairs_sharded(
+        storage.planes, n, **ring_kw(mesh=mesh2, kin_threshold=-2.0,
+                                     capacity_per_device=1 << 16)))
+    check(out.capacity_per_device > 1 << 16, "the ring did not retry past capacity 2^16")
+    same_results(ring_output_to_resultset(out), engine_rs, "auto-retry ring")
+    say(f"phase 7: keep-all {n} x {SITES} ({len(engine_rs)} hits), each equal to the "
+        f"cuda engine: 3-position ring {t3:.3f} s; split-2 shards on 2 positions "
+        f"{t_split:.3f} s; retry from 2^16 to {out.capacity_per_device} slots "
+        f"{t_retry:.3f} s (sweeps incl. compaction into the hit buffers, excl. the copy "
+        f"to the host and the sort; {card}); {launches} kernel launches")
+    return launches
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# The --distributed child: the CLI's entry point, then its launch count.
+_CHILD = (
+    "import sys\n"
+    "from cuking_tpu_torch import cli\n"
+    "from cuking_tpu_torch.ops import king_cuda\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print('LAUNCHES', king_cuda.launches)\n"
+    "sys.exit(rc)\n"
+)
+
+
+def phase_cli_mesh(tmp: str, inp: str, split1: list) -> int:
+    from cuking_tpu_torch.ops import king_cuda
+
+    king_cuda.launches = 0
+    mesh = ["--use_mesh", "--device", "cuda:0,cuda:0"]
+    run_cli(inp, f"{tmp}/mesh1", *mesh)
+    for shard in range(3):
+        run_cli(inp, f"{tmp}/mesh2", *mesh, "--split_factor", "2", "--shard_index", str(shard))
+    launches = king_cuda.launches
+    check(launches > 0, "the mesh CLI launched no count kernel")
+    check(_rows(f"{tmp}/mesh1") == split1, "--use_mesh split 1 differs from phase 5")
+    check(_rows(f"{tmp}/mesh2") == split1, "--use_mesh split 2 merged differs from phase 5")
+
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHILD, "--input_uri", inp, "--output_uri",
+         f"{tmp}/dist", "--distributed", "--device", "cuda:0,cuda:0,cuda:0,cuda:0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    check(proc.returncode == 0,
+          f"--distributed exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    child = int(proc.stdout.split("LAUNCHES")[-1].split()[0])
+    check(child > 0, "the --distributed run launched no count kernel")
+    check("rank 0 of 1, 4 ring positions" in proc.stdout,
+          "--distributed did not start a world of 1 with 4 positions")
+    check(_rows(f"{tmp}/dist") == split1, "--distributed differs from phase 5")
+    say(f"phase 8: --use_mesh on 2 positions (split 1; split 2 merged) and "
+        f"--distributed (NCCL, world 1, 4 positions on cuda:0) == phase 5's "
+        f"{len(split1)} rows, bit for bit; {launches} + {child} kernel launches")
+    return launches + child
+
+
+def phase_king_popcount(card: str):
+    import torch
+
+    from cuking_tpu_torch import KingConfig, KingEngine, king
+    from cuking_tpu_torch.ops import king_cuda
+    from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+
+    rng = np.random.default_rng(SEED + 3)
+    g = rng.integers(-1, 3, size=(2048, SITES), dtype=np.int8)
+    g[7] = g[1000]                      # a duplicate: kin 0.5
+    g[11] = -1                          # all missing: NaN kin
+    g[12] = np.where(g[12] == 1, 2, g[12])  # no hets: -inf kin
+    king_cuda.launches = 0
+    t = time.perf_counter()
+    got = king(g, device="cuda")
+    torch.cuda.synchronize()
+    king_s = time.perf_counter() - t
+    launches = king_cuda.launches
+    check(launches > 0, "king() launched no count kernel")
+    ref = king(g, kernel=lambda a, b: panel_counts_matmul(a, b), device="cuda")
+    check(torch.equal(got.kin.view(torch.int32), ref.kin.view(torch.int32)),
+          "king(): kin bits differ from the plain version")
+    for f in ("ibs0", "ibs1", "ibs2"):
+        check(torch.equal(getattr(got, f), getattr(ref, f)), f"king(): {f} differs")
+    kin = got.kin.cpu().numpy()
+    check(kin[7, 1000] == np.float32(0.5), "king(): the duplicate is not kin 0.5")
+    check(bool(np.isnan(kin[11]).all()), "king(): the all-missing sample is not NaN")
+    check(bool(np.isneginf(kin[12, 13:]).any()), "king(): the het-free sample has no -inf")
+    say(f"phase 9: king() {len(g)} x {SITES} on cuda equals the plain version on the "
+        f"card (kin bits incl. NaN/-inf, IBS); {king_s:.3f} s incl. packing; "
+        f"{launches} kernel launch ({card})")
+
+    from cuking_tpu_torch.utils.synthetic import random_genotypes
+
+    g2 = random_genotypes(1024, 10_000, missing_rate=0.05, seed=SEED, num_related_pairs=5)
+    runs = {}
+    for kernel in ("popcount", "cuda"):
+        cfg = KingConfig(kernel=kernel, device="cuda", kin_threshold=-2.0)
+        t = time.perf_counter()
+        runs[kernel] = KingEngine.from_genotypes(g2, cfg).run()
+        runs[kernel + "_s"] = time.perf_counter() - t
+    same_results(runs["popcount"], runs["cuda"], "popcount engine vs cuda engine")
+    say(f"phase 9: popcount engine {g2.shape[0]} x {g2.shape[1]} keep-all == cuda engine "
+        f"({len(runs['cuda'])} hits; popcount {runs['popcount_s']:.3f} s, cuda "
+        f"{runs['cuda_s']:.3f} s, {card})")
+    return launches
 
 
 def main() -> int:
@@ -365,15 +595,23 @@ def main() -> int:
     card = phase_env()
     phase_build()
     record = phase_kernel(card)
-    launches = phase_engine(card)
-    phase_keep_all(card)
-    phase_cli()
+    launches = {}
+    launches["engine"], engine_storage, engine_rs = phase_engine(card)
+    launches["engine_keep_all"], keep_storage, keep_rs = phase_keep_all(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["cli"], inp, split1 = phase_cli(tmp)
+        launches["ring"] = phase_ring(card, engine_storage, engine_rs)
+        del engine_storage, engine_rs
+        launches["rings_keep_all"] = phase_rings_keep_all(card, keep_storage, keep_rs)
+        launches["cli_mesh"] = phase_cli_mesh(tmp, inp, split1)
+    launches["king"] = phase_king_popcount(card)
     say(json.dumps({"kernels": [{
         "name": "king_counts",
         "route": "cuda",
         "source": "cuking_tpu_torch/csrc/king_counts.cu",
         "replaces": "cuking_tpu/ops/king_pallas.py:359",
-        "launches": launches,
+        "launches": sum(launches.values()),
+        "launches_by_path": launches,
         **record,
     }]}))
     say(json.dumps({"ok": True, "device": {

@@ -1,18 +1,20 @@
-"""Port of ``cuking_tpu/cli.py``: the single-device end-to-end pipeline
-(reference: cuking.cu:435-895).
+"""Port of ``cuking_tpu/cli.py``: the end-to-end pipeline (reference:
+cuking.cu:435-895).
 
 Same eight flags as the reference binary (cuking.cu:27-52), same validation,
 same stages: read metadata → build shard Submatrix → allocate planes →
 list+ingest Parquet in parallel → all-pairs KING (the panel sweep on
-``--device``) → overflow check → sort → write one Snappy Parquet partition
-per shard.
+``--device``, or the ring over several positions with ``--use_mesh``) →
+overflow check → sort → write one Snappy Parquet partition per shard.
 
 ``--device`` (default ``cuda``) names the torch device.  Without a CUDA
 device the default fails with exit code 1; ``--device cpu`` runs the plain
-PyTorch count path.  The TPU package's multi-chip flags (``--use_mesh``,
-``--distributed``, ``--allow_single_process``, ``--capacity_per_device``)
-and its ``--profile_dir``, ``--indexed_panels`` and ``--tile_i/--tile_j``
-are not ported yet.
+PyTorch count path.  Under ``--use_mesh`` it takes a comma-separated list of
+ring positions (default: every visible CUDA device).  ``--distributed``
+starts ``torch.distributed`` from the ``torchrun`` environment
+(``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``): NCCL for CUDA
+positions, gloo for CPU ones.  The TPU package's ``--profile_dir``,
+``--indexed_panels`` and ``--tile_i/--tile_j`` are not ported.
 
 Usage::
 
@@ -24,7 +26,9 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+from datetime import timedelta
 
 from cuking_tpu_torch.io.metadata import read_metadata
 from cuking_tpu_torch.io.parquet_ingest import ingest_parquet
@@ -37,18 +41,36 @@ from cuking_tpu_torch.models.king import (
     KingConfig,
     KingEngine,
     PanelStorage,
+    resolve_indexed_kernel,
+    resolve_kernel,
     resolve_kernel_name,
 )
 from cuking_tpu_torch.ops.bitset import PlaneLayout
 from cuking_tpu_torch.ops.compaction import ceil_pow2
+from cuking_tpu_torch.parallel.distributed import HostShardedStorage
+from cuking_tpu_torch.parallel.ring import (
+    RingMesh,
+    all_pairs_presharded,
+    default_capacity_per_device,
+    rect_pairs_presharded,
+    ring_output_local_resultset,
+    ring_output_to_resultset,
+    submatrix_pairs_sharded,
+)
 from cuking_tpu_torch.parallel.submatrix import Submatrix, num_shards
-from cuking_tpu_torch.utils.hbm import check_engine_fit
+from cuking_tpu_torch.utils.hbm import check_engine_fit, check_ring_fit, device_bytes_limit
 from cuking_tpu_torch.utils.status import (
     CukingError,
     FailedPreconditionError,
     InvalidArgumentError,
 )
 from cuking_tpu_torch.utils.stopwatch import StageLogger
+
+# How long a rank waits for its peers at the env:// rendezvous, and for a
+# collective or a ring rotation afterwards (long: ranks reach the first
+# rotation only after their own Parquet ingest, which may be skewed).
+RENDEZVOUS_TIMEOUT = timedelta(minutes=2)
+COLLECTIVE_TIMEOUT = timedelta(minutes=30)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,13 +98,44 @@ def build_parser() -> argparse.ArgumentParser:
         "Shard index in [0, split_factor*(split_factor+1)/2)"))
     # Extensions (no reference counterpart):
     p.add_argument("--kernel", default="auto", choices=list(KERNELS),
-                   help=("Count kernel: the CUDA kernel, or the plain PyTorch "
-                         "int8 product (auto: cuda on a CUDA device)"))
-    p.add_argument("--device", default="cuda", help=(
+                   help=("Count kernel: cuda (the hand-written CUDA kernel), "
+                         "matmul (the plain PyTorch int8 product) or popcount "
+                         "(the plain AND + popcount path, any device); auto: "
+                         "cuda on a CUDA device, matmul elsewhere. The TPU "
+                         "package's pallas has no meaning on a GPU"))
+    p.add_argument("--device", default=None, help=(
         "Torch device for the sweep (default cuda; cpu runs the plain "
-        "PyTorch path)"))
+        "PyTorch path). Under --use_mesh, a comma-separated list of ring "
+        "positions, one entry each, e.g. cuda:0,cuda:1 or cpu,cpu,cpu,cpu; "
+        "a device may repeat, so several positions share it (the port's "
+        "equivalent of the TPU package's XLA_FLAGS="
+        "--xla_force_host_platform_device_count). Default under --use_mesh: "
+        "every visible CUDA device; with --distributed, cuda:$LOCAL_RANK"))
     p.add_argument("--panel", type=int, default=1024,
                    help="Samples per panel (pair-tile edge) in the sweep")
+    p.add_argument("--use_mesh", action="store_true", help=(
+        "Run this shard over the ring positions of --device: the sample "
+        "rows are split over the positions and the j-blocks rotate around "
+        "the ring (composes with --split_factor for cohorts larger than "
+        "device memory; replaces the reference's share-nothing multi-GPU "
+        "fan-out)"))
+    p.add_argument("--distributed", action="store_true", help=(
+        "Several processes, one ring: torch.distributed starts from the "
+        "torchrun environment (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE; "
+        "NCCL for CUDA positions, gloo for CPU ones), each rank contributes "
+        "its --device positions, ingests only their sample row blocks and "
+        "writes its own disjoint output partition (implies --use_mesh; "
+        "composes with --split_factor — partitions are then keyed by "
+        "shard x rank)"))
+    p.add_argument("--allow_single_process", action="store_true", help=(
+        "With --distributed: proceed single-process when torch.distributed "
+        "fails to start even though the environment looks like a "
+        "multi-process run (normally a fatal error: degraded ranks would "
+        "each compute a partial ring and race on part-00000)"))
+    p.add_argument("--capacity_per_device", type=int, default=0, help=(
+        "Hit-buffer slots per ring position (0 = auto: 2x the even share "
+        "of --max_results). Row-skewed hit distributions auto-retry at a "
+        "pow2-bucketed capacity, so this is only a memory knob"))
     p.add_argument("--result_capacity", type=int, default=0, help=(
         "Initial device result-buffer slots (0 = auto: min(max_results, "
         "2^20)); the buffer grows to the next pow2 bucket when a sweep "
@@ -108,6 +161,165 @@ def _check_device(name: str) -> None:
         )
 
 
+def _resolve_devices(args) -> list[str]:
+    """The ``--device`` entries: one device, or under --use_mesh the ring
+    positions (default: every visible CUDA device, or with --distributed
+    this rank's ``cuda:$LOCAL_RANK``)."""
+    import torch
+
+    if args.device:
+        names = [d.strip() for d in args.device.split(",")]
+    elif not args.use_mesh:
+        names = ["cuda"]
+    elif args.distributed:
+        names = [f"cuda:{os.environ.get('LOCAL_RANK', '0')}"]
+    else:
+        names = [f"cuda:{k}" for k in range(torch.cuda.device_count())] or ["cuda"]
+    if len(names) > 1 and not args.use_mesh:
+        raise InvalidArgumentError(
+            f"--device {args.device!r} lists {len(names)} devices; a list of "
+            "ring positions needs --use_mesh"
+        )
+    for name in names:
+        _check_device(name)
+    types = sorted({torch.device(n).type for n in names})
+    if len(types) > 1:
+        raise InvalidArgumentError(
+            f"Ring positions must all be on one device type; --device lists {types}"
+        )
+    return names
+
+
+def _multihost_context_reason() -> str | None:
+    """A human-readable reason the environment looks like a multi-process
+    run (torchrun or a hand-set env:// rendezvous), or None for a plain
+    local run."""
+    world = os.environ.get("WORLD_SIZE", "")
+    if world.isdigit() and int(world) > 1:
+        return f"WORLD_SIZE={world}"
+    for k in ("MASTER_ADDR", "TORCHELASTIC_RUN_ID"):
+        if os.environ.get(k):
+            return f"{k} is set"
+    return None
+
+
+def _init_distributed(devices: list[str]) -> bool:
+    """Starts torch.distributed from the env:// (torchrun) variables, with
+    a rendezvous timeout of its own; NCCL for CUDA positions, gloo for CPU
+    ones.  Returns False when the caller had already started it."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    first = torch.device(devices[0])
+    if first.type == "cuda" and first.index is not None:
+        torch.cuda.set_device(first)
+    store, rank, world = next(dist.rendezvous("env://", timeout=RENDEZVOUS_TIMEOUT))
+    dist.init_process_group(
+        "nccl" if first.type == "cuda" else "gloo", store=store, rank=rank,
+        world_size=world, timeout=COLLECTIVE_TIMEOUT,
+    )
+    return True
+
+
+def _start_mesh(args, devices: list[str], logger) -> tuple[RingMesh, bool]:
+    """The ring mesh; with --distributed, over every rank's positions.
+    Returns (mesh, whether this call started torch.distributed)."""
+    if not args.distributed:
+        return RingMesh(devices), False
+    import torch.distributed as dist
+
+    created = False
+    try:
+        created = _init_distributed(devices)
+    except (ValueError, RuntimeError, OSError):
+        # A multi-process run whose rendezvous fails must be fatal:
+        # continuing would give every rank rank 0, a local-only ring, a
+        # full-cohort bitset per rank and races on part-00000.  Only
+        # proceed single-process when nothing in the environment says this
+        # is a multi-process run (local dev).
+        reason = _multihost_context_reason()
+        if reason and not args.allow_single_process:
+            raise FailedPreconditionError(
+                "torch.distributed failed to initialize in what looks like "
+                f"a multi-process run ({reason}); refusing to degrade to "
+                "a single-process mesh. Re-run the task, or pass "
+                "--allow_single_process to override."
+            )
+        logger.print(
+            "No distributed coordinator available; running single-process."
+        )
+    if not dist.is_initialized():
+        return RingMesh(devices), created
+    mesh = RingMesh.from_process_group(devices)
+    logger.print(
+        f"Initialized distributed runtime: rank {mesh.rank} of "
+        f"{dist.get_world_size()}, {mesh.size} ring positions total."
+    )
+    return mesh, created
+
+
+def _run_mesh_sweep(args, panel_storage, config: KingConfig, mesh: RingMesh, logger):
+    """Ring path: sample-sharded blocks rotating over the mesh
+    (parallel/ring.py) instead of the single-device panel sweep.  With
+    --distributed each rank extracts only its own positions' hits
+    (share-nothing outputs, like the reference's shards, README.md:102).
+    The port's kernels take any row count, so the row multiple is 1."""
+    logger.print(f"Using a {mesh.size}-position mesh for the ring sweep.")
+    common = dict(
+        kin_threshold=args.kin_threshold,
+        capacity_per_device=args.capacity_per_device
+        or default_capacity_per_device(args.max_results, mesh.size),
+        max_results=args.max_results,
+        sub_panel=config.panel,
+        indexed_kernel=resolve_indexed_kernel(config),
+    )
+    kernel = resolve_kernel(config)
+    if isinstance(panel_storage, HostShardedStorage):
+        # Each rank holds only its own positions' blocks of this shard's
+        # range(s); no rank holds the whole cohort.
+        arrays = panel_storage.to_device_blocks()
+        if len(arrays) == 1:
+            begin, length = panel_storage.ranges[0]
+            out = all_pairs_presharded(
+                arrays[0], length, mesh, kernel, row_offset=begin, **common
+            )
+        else:
+            (i_begin, i_count), (j_begin, j_count) = panel_storage.ranges
+            out = rect_pairs_presharded(
+                arrays[0], arrays[1], i_count, j_count, mesh, kernel,
+                i_offset=i_begin, j_offset=j_begin, **common,
+            )
+    else:
+        # A diagonal shard runs the triangular ring at its global row
+        # offset, an off-diagonal shard the rectangular ring.
+        out = submatrix_pairs_sharded(panel_storage, mesh, kernel, **common)
+    if args.distributed:
+        return ring_output_local_resultset(out, args.max_results)
+    return ring_output_to_resultset(out, args.max_results)
+
+
+def _check_mesh_fit(args, mesh: RingMesh, metadata, layout, submatrix, panel) -> None:
+    """The ring's capacity model, before ingest: on overflow the error names
+    the minimal --split_factor that fits.  HostShardedStorage pads rows only
+    to the row multiple (panel 1); PanelStorage to a panel multiple first."""
+    capacity = args.capacity_per_device or default_capacity_per_device(
+        args.max_results, mesh.size
+    )
+    local = [mesh.devices[p] for p in mesh.local_positions]
+    limits = [x for x in map(device_bytes_limit, set(local)) if x is not None]
+    check_ring_fit(
+        metadata.num_samples, layout.words, 0, capacity, mesh.size,
+        min(limits) if limits else None,
+        submatrix=submatrix,
+        panel=1 if args.distributed else panel,
+        split_factor=args.split_factor,
+        max_results=args.max_results,
+        positions_per_device=max(local.count(d) for d in local),
+    )
+
+
 def run(args: argparse.Namespace) -> None:
     # Flag validation, mirroring cuking.cu:436-465.
     if not args.input_uri:
@@ -120,17 +332,47 @@ def run(args: argparse.Namespace) -> None:
         raise InvalidArgumentError("Invalid split factor")
     if args.shard_index >= num_shards(args.split_factor) or args.shard_index < 0:
         raise InvalidArgumentError("Invalid shard index")
-    _check_device(args.device)
+    if args.distributed:
+        args.use_mesh = True
+    devices = _resolve_devices(args)
 
     logger = StageLogger(enabled=not args.quiet)
+    mesh, created = _start_mesh(args, devices, logger) if args.use_mesh else (None, False)
+    try:
+        _run_pipeline(args, devices, mesh, logger)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> None:
     storage = Storage(requester_pays_project=args.requester_pays_project)
+    shard_index = args.shard_index
+    if mesh is not None and mesh.distributed:
+        # Each rank owns one disjoint output partition.  With
+        # --split_factor the partition index combines (shard, rank), so the
+        # merged output keeps the reference's trivially-mergeable property
+        # (README.md:102).
+        import torch.distributed as dist
+
+        shard_index = args.shard_index * dist.get_world_size() + mesh.rank
 
     if args.skip_existing:
-        part_uri = storage.join(args.output_uri, partition_name(args.shard_index))
+        part_uri = storage.join(args.output_uri, partition_name(shard_index))
         # Existence alone is not enough: a crashed writer can leave a
         # truncated partition.  Only a partition whose Parquet footer parses
         # counts as done (README.md:102).
-        if partition_is_valid(storage, part_uri):
+        mine_exists = partition_is_valid(storage, part_uri)
+        if args.distributed:
+            # The skip decision must be COLLECTIVE: a rank that returned
+            # early would leave its peers waiting in the ring's first
+            # rotation.  Skip only when every rank's partition exists.
+            if mesh.all_reduce([int(mine_exists)], op="min")[0]:
+                logger.print("All output partitions exist; skipping.")
+                return
+        elif mine_exists:
             logger.print(f"Output {part_uri} already exists; skipping.")
             return
 
@@ -152,7 +394,7 @@ def run(args: argparse.Namespace) -> None:
         panel=panel,
         kernel=args.kernel,
         result_capacity=args.result_capacity,
-        device=args.device,
+        device=devices[0],
         verbose=not args.quiet,
     )
     resolve_kernel_name(config)  # --kernel cuda on a CPU device fails here
@@ -161,10 +403,20 @@ def run(args: argparse.Namespace) -> None:
     # Capacity model: fail up front with the minimal --split_factor that
     # fits instead of a device out-of-memory error mid-upload (the
     # reference's split_factor memory-relief prescription, cuking.cu:513-517).
-    check_engine_fit(
-        metadata.num_samples, layout.words, submatrix, config, args.split_factor
-    )
-    panel_storage = PanelStorage(layout, submatrix, config.panel)
+    if mesh is not None:
+        _check_mesh_fit(args, mesh, metadata, layout, submatrix, panel)
+    else:
+        check_engine_fit(
+            metadata.num_samples, layout.words, submatrix, config, args.split_factor
+        )
+    if args.distributed:
+        # Host-sharded storage: this rank holds only its own positions'
+        # sample row blocks (no full-cohort bitset per rank).
+        panel_storage = HostShardedStorage(
+            layout, metadata.num_samples, mesh, submatrix=submatrix
+        )
+    else:
+        panel_storage = PanelStorage(layout, submatrix, config.panel)
     mib = panel_storage.planes.nbytes >> 20
     logger.print(f"Allocated {mib} MiB of memory for bit planes.")
 
@@ -185,12 +437,17 @@ def run(args: argparse.Namespace) -> None:
     )
     logger.end("ingest")
 
-    engine = KingEngine(panel_storage, config, logger=logger)
-    results = engine.run()
+    if mesh is not None:
+        logger.begin("Running mesh ring sweep...")
+        results = _run_mesh_sweep(args, panel_storage, config, mesh, logger)
+        logger.end("king_kernel")
+    else:
+        engine = KingEngine(panel_storage, config, logger=logger)
+        results = engine.run()
 
     logger.begin(f"Writing {len(results)} results...")
     uri = write_results(
-        storage, args.output_uri, results, metadata.samples, args.shard_index
+        storage, args.output_uri, results, metadata.samples, shard_index
     )
     logger.end("write")
     logger.print(f"Wrote {uri}.")

@@ -22,13 +22,16 @@ packed planes for one shard, in PyTorch.
 
 Kernels (``KingConfig.kernel``): ``cuda`` (the hand-written count kernel,
 ops/king_cuda.py), ``matmul`` (the plain PyTorch int8 product,
-ops/king_mm.py) or ``auto`` (``cuda`` on a CUDA device, ``matmul`` on the
-CPU).
+ops/king_mm.py), ``popcount`` (the plain AND + popcount path,
+ops/king_popcount.py, on any device) or ``auto`` (``cuda`` on a CUDA device,
+``matmul`` on the CPU).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
+from typing import Callable
 
 import numpy as np
 import torch
@@ -36,9 +39,10 @@ import torch
 from cuking_tpu_torch.ops import bitset
 from cuking_tpu_torch.ops.bitset import PlaneLayout
 from cuking_tpu_torch.ops.compaction import ResultBuffer, compact_hits
-from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda_indexed
+from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
 from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+from cuking_tpu_torch.ops.king_popcount import panel_counts_popcount
 from cuking_tpu_torch.parallel.submatrix import Submatrix
 from cuking_tpu_torch.utils.status import InvalidArgumentError
 from cuking_tpu_torch.utils.stopwatch import StageLogger
@@ -48,7 +52,7 @@ DEFAULT_MAX_RESULTS = 10 << 20  # cuking.cu:40-41
 # Initial device result-buffer slots (24 B each): smaller than max_results
 # so a hit-light sweep doesn't allocate the reference's full 252 MiB.
 DEFAULT_RESULT_CAPACITY = 1 << 20
-KERNELS = ("auto", "cuda", "matmul")
+KERNELS = ("auto", "cuda", "matmul", "popcount")
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -62,8 +66,9 @@ class KingConfig:
     kin_threshold: float = DEFAULT_KIN_THRESHOLD
     max_results: int = DEFAULT_MAX_RESULTS
     panel: int = 1024               # samples per panel (pair tile edge)
-    kernel: str = "auto"            # auto | cuda | matmul
+    kernel: str = "auto"            # auto | cuda | matmul | popcount
     site_chunk_words: int = 128     # words per site chunk, matmul kernel only
+    popcount_row_block: int = 8     # i-rows per popcount block
     result_capacity: int = 0        # initial result-buffer slots (0 = auto)
     device: str = "cuda"
     verbose: bool = False
@@ -89,6 +94,29 @@ def resolve_kernel_name(config: KingConfig) -> str:
             f"The cuda kernel needs a CUDA device, not {config.device}"
         )
     return config.kernel
+
+
+def resolve_kernel(config: KingConfig) -> Callable:
+    """The sliced count entry ``(planes_i, planes_j, tri) -> KingCounts`` of
+    the configured kernel (the ring's sub-tile kernel)."""
+    name = resolve_kernel_name(config)
+    if name == "cuda":
+        return panel_counts_cuda
+    if name == "popcount":
+        return partial(panel_counts_popcount, row_block=config.popcount_row_block)
+
+    def matmul(planes_i, planes_j, tri=None):
+        return panel_counts_matmul(
+            planes_i, planes_j, site_chunk_words=config.site_chunk_words
+        )
+
+    return matmul
+
+
+def resolve_indexed_kernel(config: KingConfig) -> Callable | None:
+    """The indexed entry (row offsets into full storage, no panel copies)
+    when the CUDA kernel is selected; None otherwise."""
+    return panel_counts_cuda_indexed if resolve_kernel_name(config) == "cuda" else None
 
 
 @dataclass
@@ -207,6 +235,8 @@ class KingEngine:
         self.logger = logger or StageLogger(enabled=self.config.verbose)
         self.device = torch.device(self.config.device)
         self.kernel_name = resolve_kernel_name(self.config)
+        self._kernel = resolve_kernel(self.config)
+        self._indexed_kernel = resolve_indexed_kernel(self.config)
         self._planes_dev_cache = None
         self._planes_dev_version = None
 
@@ -269,12 +299,10 @@ class KingEngine:
     def _counts(self, planes: torch.Tensor, i_off: int, j_off: int,
                 tri: bool) -> KingCounts:
         panel = self.config.panel
-        if self.kernel_name == "cuda":
-            return panel_counts_cuda_indexed(planes, i_off, j_off, tri, panel)
-        return panel_counts_matmul(
-            planes[:, i_off : i_off + panel],
-            planes[:, j_off : j_off + panel],
-            site_chunk_words=self.config.site_chunk_words,
+        if self._indexed_kernel is not None:
+            return self._indexed_kernel(planes, i_off, j_off, tri, panel)
+        return self._kernel(
+            planes[:, i_off : i_off + panel], planes[:, j_off : j_off + panel], tri
         )
 
     def run(self) -> ResultSet:

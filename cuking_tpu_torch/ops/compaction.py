@@ -8,6 +8,10 @@ PyTorch runs eagerly, so each panel-pair step compacts its mask with
 six fields; the buffer appends them at its running count.  The TPU package's
 ``top_k`` fast path and its scatter fallback worked around slow TPU scatters
 under static shapes and are not needed here.
+
+Two buffers: the engine's :class:`ResultBuffer` grows and raises as soon as
+a step crosses ``max_results``; the ring's per-position :class:`HitBuffer`
+has a fixed capacity, keeps its count exact past it and never raises.
 """
 
 from __future__ import annotations
@@ -84,3 +88,28 @@ class ResultBuffer:
     def to_host(self) -> np.ndarray:
         """The hits as one [6, count] int32 host array (one transfer)."""
         return self.buf[:, : self.count].cpu().numpy()
+
+
+class HitBuffer:
+    """One ring position's fixed [6, capacity] int32 device buffer.
+
+    Unlike :class:`ResultBuffer` it never grows and never raises: hits past
+    ``capacity`` are dropped while ``count`` stays the exact total, as in the
+    TPU package's ring (``accumulate_hits``).  The ring decides overflow
+    only after the sweep, from the counts of every position, so that in a
+    multi-process run every rank raises or retries together instead of one
+    rank leaving its peers waiting in the next collective."""
+
+    def __init__(self, capacity: int, device):
+        self.buf = torch.empty((6, capacity), dtype=torch.int32, device=device)
+        self.count = 0
+
+    @property
+    def capacity(self) -> int:
+        return self.buf.shape[1]
+
+    def append(self, hits: torch.Tensor) -> None:
+        take = min(hits.shape[1], max(0, self.capacity - self.count))
+        if take:
+            self.buf[:, self.count : self.count + take] = hits[:, :take]
+        self.count += hits.shape[1]

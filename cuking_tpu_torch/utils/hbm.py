@@ -1,5 +1,5 @@
-"""Port of ``cuking_tpu/utils/hbm.py`` (the engine fit only): fail before a
-device out-of-memory error, with a fix in hand.
+"""Port of ``cuking_tpu/utils/hbm.py``: fail before a device out-of-memory
+error, with a fix in hand.
 
 The reference sizes its allocations against a known GPU memory envelope and
 prescribes ``--split_factor`` as the memory-relief mechanism
@@ -8,6 +8,10 @@ device-resident footprint of a shard's sweep UP FRONT — bit planes, the
 result buffer and the per-step transients — compare it with the device's
 free memory, and when it doesn't fit, raise InvalidArgument naming the
 **minimal split factor that does**.
+
+The ring has its own model (``check_ring_fit``).  Several ring positions
+may share one device, so the need of a device is the need of one position
+times the positions it holds.
 
 The limit is ``torch.cuda.mem_get_info`` on a CUDA device; a CPU device has
 none and the check is skipped.  ``CUKING_HBM_BYTES_LIMIT`` overrides the
@@ -145,4 +149,161 @@ def check_engine_fit(
         f"{buffers_b >> 20} MiB sweep buffers) but only "
         f"{limit >> 20} MiB is available; increase --split_factor to at "
         f"least {hi}."
+    )
+
+
+def ring_rows_per_device(
+    rows: int, panel: int, row_multiple: int, num_devices: int
+) -> int:
+    """Per-position row count the ring will actually use for a range of
+    ``rows`` samples: panel-padded storage rows (PanelStorage layout) split
+    over the ring, rounded to the kernel's row multiple — mirroring
+    all_pairs_sharded/rect_pairs_sharded padding exactly."""
+    padded = _ceil_to(max(rows, 1), panel)
+    nd = -(-padded // num_devices)
+    return _ceil_to(nd, row_multiple)
+
+
+def _ring_hits_bytes(capacity_per_device: int, max_results: int | None) -> int:
+    """Worst-case hit-buffer bytes per position: the overflow auto-retry
+    (parallel/ring._run_with_retry) can regrow the buffer to a pow2 bucket
+    capped at the GLOBAL max_results, so the up-front check budgets that
+    ceiling (the engine model worst-cases the same way)."""
+    worst = capacity_per_device
+    if max_results is not None:
+        worst = max(worst, max_results)
+    return 6 * 4 * worst
+
+
+def ring_shard_bytes(
+    num_rows: int,
+    num_cols: int,
+    is_diagonal: bool,
+    words: int,
+    panel: int,
+    row_multiple: int,
+    num_devices: int,
+    capacity_per_device: int,
+    max_results: int | None = None,
+    positions_per_device: int = 1,
+) -> int:
+    """Device bytes for one Submatrix shard's ring sweep.  Per position, a
+    diagonal shard holds 3 copies of its row block (resident + visiting +
+    one in flight); an off-diagonal shard holds its resident i-block plus 2
+    rotating j-blocks; both add the six hit buffers at their worst
+    (post-retry) capacity.  A device holding several positions needs that
+    many times the per-position bytes."""
+    hits_b = _ring_hits_bytes(capacity_per_device, max_results)
+    nd_i = ring_rows_per_device(num_rows, panel, row_multiple, num_devices)
+    panel_i = 2 * nd_i * words * 4
+    if is_diagonal:
+        per_position = 3 * panel_i + hits_b
+    else:
+        nd_j = ring_rows_per_device(num_cols, panel, row_multiple, num_devices)
+        per_position = panel_i + 2 * (2 * nd_j * words * 4) + hits_b
+    return positions_per_device * per_position
+
+
+def _worst_ring_shard_bytes(
+    num_samples: int, split_factor: int, words: int, panel: int,
+    row_multiple: int, num_devices: int, capacity_per_device: int,
+    max_results: int | None = None, positions_per_device: int = 1,
+) -> int:
+    """Worst shard at a given split factor: for k ≥ 2 an off-diagonal shard
+    holding two full-size blocks (cuking.cu:158-175); for k = 1 the single
+    diagonal shard."""
+    block = -(-num_samples // split_factor)
+    return ring_shard_bytes(
+        block, block, split_factor == 1, words, panel, row_multiple,
+        num_devices, capacity_per_device, max_results, positions_per_device,
+    )
+
+
+def check_ring_fit(
+    num_samples: int,
+    words: int,
+    rows_per_device: int,
+    capacity_per_device: int,
+    num_devices: int,
+    bytes_limit: int | None = None,
+    *,
+    submatrix=None,
+    panel: int = 1,
+    row_multiple: int = 1,
+    split_factor: int = 1,
+    max_results: int | None = None,
+    positions_per_device: int = 1,
+) -> None:
+    """Ring capacity check.  When this shard's ring footprint exceeds the
+    device memory, raises InvalidArgument naming the minimal
+    ``--split_factor`` whose worst shard fits on this ring — --use_mesh
+    composes with --split_factor (parallel/ring.submatrix_pairs_sharded),
+    so sharding is the memory relief here as on the engine path
+    (README.md:94-102).  Hit buffers are budgeted at their worst
+    post-auto-retry capacity (min'd against ``max_results`` when given).
+
+    ``num_devices`` counts ring positions; ``positions_per_device`` is the
+    most positions any one device holds.  ``submatrix`` enables the
+    per-shard model (what the CLI passes); without it, ``rows_per_device``
+    drives the plain triangular-ring model.  ``bytes_limit`` is the
+    smallest :func:`device_bytes_limit` of the ring's devices; None (CPU
+    positions) skips the check."""
+    if bytes_limit is None:
+        return
+    limit = bytes_limit
+    hits_b = _ring_hits_bytes(capacity_per_device, max_results)
+    if submatrix is not None:
+        need = ring_shard_bytes(
+            submatrix.num_rows, submatrix.num_cols, submatrix.is_diagonal,
+            words, panel, row_multiple, num_devices, capacity_per_device,
+            max_results, positions_per_device,
+        )
+    else:
+        need = positions_per_device * (3 * (2 * rows_per_device * words * 4) + hits_b)
+    if need <= limit:
+        return
+
+    def worst(k: int) -> int:
+        return _worst_ring_shard_bytes(
+            num_samples, k, words, panel, row_multiple, num_devices,
+            capacity_per_device, max_results, positions_per_device,
+        )
+
+    # Splitting shrinks only the plane term; the hit-buffer term is
+    # k-independent.  If not even maximal splitting fits, say so instead of
+    # prescribing a split factor that cannot work.
+    if worst(num_samples) > limit:
+        raise InvalidArgumentError(
+            f"Each of the {num_devices} mesh devices needs {need >> 20} MiB "
+            f"for this shard's ring sweep but only {limit >> 20} MiB is "
+            f"available, and no --split_factor can relieve it: the "
+            f"{hits_b >> 20} MiB worst-case hit buffers alone don't fit. "
+            "Lower --max_results/--capacity_per_device, or run on a larger "
+            "slice."
+        )
+    if worst(split_factor) <= limit:
+        # The caller's `need` (e.g. a library-supplied rows_per_device with
+        # padding beyond this model) exceeds the limit although the
+        # worst-shard model at the current split fits: a split prescription
+        # would be misleading, so give none.
+        raise InvalidArgumentError(
+            f"Each of the {num_devices} mesh devices needs {need >> 20} MiB "
+            f"for this ring sweep (incl. {hits_b >> 20} MiB worst-case hit "
+            f"buffers) but only {limit >> 20} MiB is available; reduce the "
+            "per-device row count or run on a larger slice."
+        )
+    # worst(k) is non-increasing in k: binary-search the minimal fitting k.
+    lo, hi = split_factor, num_samples  # worst(lo) > limit, worst(hi) <= limit
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if worst(mid) > limit:
+            lo = mid
+        else:
+            hi = mid
+    raise InvalidArgumentError(
+        f"Each of the {num_devices} mesh devices needs {need >> 20} MiB "
+        f"for this shard's ring sweep (incl. {hits_b >> 20} MiB worst-case "
+        f"hit buffers) but only {limit >> 20} MiB is available; increase "
+        f"--split_factor to at least {hi} (it composes with --use_mesh), "
+        "or run on a larger slice."
     )

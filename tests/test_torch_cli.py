@@ -126,9 +126,21 @@ def test_cli_skip_existing(tmp_path, capsys):
     assert "already exists; skipping" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--use_mesh", "--distributed", "--tile_i=256",
-                                  "--profile_dir=x", "--indexed_panels"])
+@pytest.mark.parametrize("flag", ["--tile_i=256", "--profile_dir=x",
+                                  "--indexed_panels", "--kernel=pallas"])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         cli.build_parser().parse_args(["--input_uri", "x", flag])
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize("threshold", ["0.0884", "-2.0"])
+def test_popcount_cli_matches_jax_cli_on_golden(tmp_path, threshold):
+    common = ["--input_uri", GOLDEN_INPUT, "--kin_threshold", threshold,
+              "--kernel", "popcount", "--quiet"]
+    assert cli.main([*common, "--output_uri", str(tmp_path / "port"),
+                     "--device", "cpu"]) == 0
+    assert jax_cli.main([*common, "--output_uri", str(tmp_path / "jax")]) == 0
+    port, ref = read_output_rows(str(tmp_path / "port")), read_output_rows(str(tmp_path / "jax"))
+    assert len(ref) > 0
+    assert port == ref

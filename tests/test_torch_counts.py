@@ -1,6 +1,7 @@
 """The port's count entries (ops/king_cuda.py) against the JAX package's
 Pallas kernel (interpret mode, as tests/test_king_kernels.py runs it) and the
-numpy oracle, exactly.
+numpy oracle, exactly; and the port's popcount path (ops/king_popcount.py)
+against the JAX package's ``panel_counts_popcount``.
 
 On the CPU both entries take the plain PyTorch version (ops/king_mm.py); the
 kernel itself is held against that version on the card by
@@ -12,10 +13,12 @@ import torch
 
 import jax.numpy as jnp
 
+from cuking_tpu.ops.king_jnp import panel_counts_popcount as jax_popcount
 from cuking_tpu.ops.king_pallas import panel_counts_pallas, panel_counts_pallas_indexed
 from cuking_tpu_torch.ops.bitset import PlaneLayout, pack_genotypes
 from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+from cuking_tpu_torch.ops.king_popcount import panel_counts_popcount, popcount32
 from cuking_tpu_torch.ops.oracle import oracle_counts
 from cuking_tpu_torch.utils.status import InvalidArgumentError
 from cuking_tpu_torch.utils.synthetic import random_genotypes
@@ -96,3 +99,25 @@ def test_entries_check_their_inputs():
         panel_counts_cuda_indexed(planes.to(torch.int64), 0, 0, 0, 8)
     with pytest.raises(InvalidArgumentError, match="W=4, planes_j W=8"):
         panel_counts_cuda(planes, torch.zeros((2, 16, 8), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("sites,ni,nj,row_block", [
+    (100, 8, 16, 8), (1023, 16, 24, 3), (2049, 24, 8, 8), (700, 5, 7, 16),
+])
+def test_popcount_path_matches_jax_popcount(sites, ni, nj, row_block):
+    """Row blocks that divide NI, that do not (a ragged last block), and
+    that exceed it."""
+    g, planes = _planes(ni + nj, sites, seed=11 * sites)
+    pi, pj = planes[:, :ni].copy(), planes[:, ni:].copy()
+    got = panel_counts_popcount(_t(pi), _t(pj), row_block=row_block)
+    ref = jax_popcount(jnp.asarray(pi), jnp.asarray(pj), row_block=8)
+    _assert_counts_equal(got, ref)
+    _assert_counts_equal(got, oracle_counts(g[:ni], g[ni:]))
+
+
+def test_popcount32_on_sign_bits():
+    """SWAR on the int32 view: words with the sign bit set count right."""
+    words = np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0xDEADBEEF,
+                      0x55555555, 0xAAAAAAAA], dtype=np.uint32)
+    got = popcount32(torch.from_numpy(words.view(np.int32))).tolist()
+    assert got == [bin(int(w)).count("1") for w in words]

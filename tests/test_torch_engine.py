@@ -79,8 +79,17 @@ def test_duplicates_give_kin_one_half_exactly():
     assert rs.ibs2[0] == int((g[7] >= 0).sum())
 
 
+def test_popcount_engine_matches_jax_popcount(genotypes):
+    common = dict(panel=16, kin_threshold=-2.0, max_results=N * N, kernel="popcount",
+                  popcount_row_block=3)
+    ref = JaxEngine.from_genotypes(genotypes, JaxConfig(**common)).run()
+    got = KingEngine.from_genotypes(genotypes, KingConfig(**common, device="cpu")).run()
+    _assert_same(got, ref)
+
+
 def test_kernel_resolution():
     assert resolve_kernel_name(KingConfig(device="cpu")) == "matmul"
+    assert resolve_kernel_name(KingConfig(kernel="popcount", device="cuda")) == "popcount"
     assert resolve_kernel_name(KingConfig(device="cuda")) == "cuda"
     with pytest.raises(InvalidArgumentError, match="needs a CUDA device"):
         resolve_kernel_name(KingConfig(kernel="cuda", device="cpu"))

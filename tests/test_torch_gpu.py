@@ -12,9 +12,16 @@ import pytest
 import torch
 
 from cuking_tpu_torch.ops import king_cuda
-from cuking_tpu_torch.ops.bitset import PlaneLayout
+from cuking_tpu_torch.ops.bitset import PlaneLayout, pack_genotypes
 from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
+from cuking_tpu_torch.models.king import KingConfig, KingEngine
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+from cuking_tpu_torch.parallel.ring import (
+    RingMesh,
+    all_pairs_sharded,
+    ring_output_to_resultset,
+)
+from cuking_tpu_torch.utils.synthetic import random_genotypes
 
 
 @pytest.fixture
@@ -62,3 +69,27 @@ def test_cuda_sliced_entry_counts_its_launch(cuda_device):
     exp = panel_counts_matmul(pi, pj)
     for name, g, e in zip(got._fields, got, exp):
         assert torch.equal(g, e), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("positions,sub_panel", [(3, 64), (4, 64), (4, None)])
+def test_ring_on_one_card_equals_the_engine(cuda_device, positions, sub_panel):
+    """The ring with every position on cuda:0 (odd D; even D with sub-tiled
+    and with single-tile wrap steps, the latter reading the visitor at row
+    offset p1) returns the cuda engine's keep-all results exactly."""
+    g = random_genotypes(300, 3_000, missing_rate=0.05, seed=positions,
+                         num_related_pairs=4)
+    layout = PlaneLayout.create(3_000)
+    before = king_cuda.launches
+    out = all_pairs_sharded(
+        pack_genotypes(g, layout), 300, RingMesh([cuda_device] * positions),
+        panel_counts_cuda, kin_threshold=-2.0, capacity_per_device=1 << 16,
+        sub_panel=sub_panel, indexed_kernel=panel_counts_cuda_indexed)
+    assert king_cuda.launches > before
+    got = ring_output_to_resultset(out)
+    ref = KingEngine.from_genotypes(
+        g, KingConfig(kernel="cuda", device="cuda", panel=128, kin_threshold=-2.0)).run()
+    assert len(got) == len(ref) > 0
+    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
