@@ -9,13 +9,21 @@ Phases (any failure exits nonzero):
 
 0. Environment: torch/CUDA versions, ``nvcc --version``, the card's name and
    power limit.
-1. Build the CUDA count kernel from ``cuking_tpu_torch/csrc`` (nvcc).
-2. Kernel vs its plain PyTorch version on the card, at 100,000 sites: the
-   indexed entry (offsets into a 4,096-row storage, separate ``planes_j``),
-   an asymmetric ``panel_j``, a ``tri`` diagonal pair, a small ragged W with
-   partial tiles, and the sliced entry.  All six counters must be equal; 64
-   sampled pairs are also held against the numpy oracle.  Times the kernel
-   and the plain version at the engine's shape (1024 x 1024 pairs).
+1. Build the CUDA count kernels from ``cuking_tpu_torch/csrc`` (nvcc); print
+   the build time and ``ptxas -v``'s registers and spills.
+2. The wgmma count kernel and its yardstick, the AND + popcount kernel,
+   against the five-block and the 9-block plain versions on the card, all
+   six counters bit for bit, and against the numpy oracle on sampled pairs:
+   the indexed entry (offsets into a 4,096-row storage, separate
+   ``planes_j``), an asymmetric ``panel_j``, a ``tri`` diagonal pair,
+   W = 100 with partial tiles, the sliced entry, rows that are all missing,
+   all het, all hom-ref, all hom-alt or have the sign bit set (at 100,000
+   sites and at W = 4), and 256 x 256 at 1,000,000 sites.  Then CUDA-event
+   times at the engine's shape (1024 x 1024 pairs, off the diagonal and
+   ``tri``) at 100,000 and at 1,000,000 sites: the kernel, the AND +
+   popcount kernel (``prev_ms``), one ``torch._int_mm`` of the stacked
+   9-block indicators (``library_ms``), the plain version, and the bound
+   computed from the shapes.
 3. The main path: ``KingEngine`` at 32,768 samples x 100,000 sites with 64
    planted duplicate pairs; exactly those must come out, with kin == 0.5.
    Kernel launch counts are read from this run.
@@ -41,8 +49,10 @@ Phases (any failure exits nonzero):
    at 1,024 x 10,000 against the cuda engine.
 
 Every count of kernel launches is set to 0 just before a path runs and read
-just after.  The second-to-last line is the kernels' JSON record; the last
-line is ``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
+just after; the AND + popcount yardstick may launch on no path.  Phase 3
+also profiles one more sweep for the device's busy share.  The
+second-to-last line is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
 """
 
 from __future__ import annotations
@@ -144,9 +154,43 @@ def phase_build() -> None:
     t = time.perf_counter()
     log = king_cuda.build()
     say(f"phase 1: built {king_cuda.LIB_PATH} in {time.perf_counter() - t:.1f} s")
+    kernel = "?"
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            say(f"  ptxas: {line.strip()}")
+        if "Compiling entry function" in line:
+            kernel = next((k for k in ("wgmma", "popc") if f"king_counts_{k}_kernel" in line),
+                          "?")
+        elif "Used" in line or "spill" in line:
+            say(f"  ptxas, {kernel} kernel: {line.split(':', 1)[-1].strip()}")
+
+
+# Card peaks for the bound (NVIDIA's H100 SXM data sheet, dense, 700 W).
+PEAK_INT8_OPS = 1.979e15
+PEAK_BYTES = 3.35e12
+
+
+def count_bound(ni: int, nj: int, words: int) -> tuple[float, str]:
+    """The least time (ms) one count launch could take, and what bounds it:
+    five int8 products of 2 operations per pair and padded site, against
+    the planes read once and the six int32 counters written once."""
+    ops = 10 * ni * nj * 32 * words
+    nbytes = 2 * (ni + nj) * words * 4 + 6 * ni * nj * 4
+    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def edge_planes(rows: int, layout, rng) -> np.ndarray:
+    """Random planes whose first 6 rows are all missing, all het, all
+    hom-ref, all hom-alt, and two rows whose words have the sign bit set
+    (het at the bit-31 sites and hom-ref elsewhere; hom-alt at the bit-31
+    sites and hom-ref elsewhere).  Padding sites stay missing."""
+    planes = random_planes(rows, layout, rng)
+    pad = padding_mask(layout)
+    ones = np.full(layout.words, 0xFFFFFFFF, np.uint32)
+    sign = np.uint32(0x80000000) | pad
+    for row, (het, hom) in enumerate([(ones, ones), (ones, pad), (pad, pad),
+                                      (pad, ones), (sign, pad), (pad, sign)]):
+        planes[0, row], planes[1, row] = het, hom
+    return planes
 
 
 def phase_kernel(card: str) -> dict:
@@ -156,78 +200,135 @@ def phase_kernel(card: str) -> dict:
     from cuking_tpu_torch.ops.king_cuda import (
         panel_counts_cuda,
         panel_counts_cuda_indexed,
+        panel_counts_five_block,
+        panel_counts_popc_indexed,
     )
-    from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+    from cuking_tpu_torch.ops.king_mm import indicator_planes, panel_counts_matmul
     from cuking_tpu_torch.ops.oracle import oracle_counts
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda", 0)
+
+    def on_card(planes_np):
+        return torch.from_numpy(planes_np.view(np.int32)).to(dev)
+
     layout = PlaneLayout.create(SITES)
     store_np = random_planes(4096, layout, rng)
     pj_np = random_planes(2048, layout, rng)
-    store = torch.from_numpy(store_np.view(np.int32)).to(dev)
-    pj = torch.from_numpy(pj_np.view(np.int32)).to(dev)
-    small_layout = PlaneLayout.create(3_100)  # W = 100: ragged 16-word chunk
-    small = torch.from_numpy(random_planes(1800, small_layout, rng).view(np.int32)).to(dev)
+    small_layout = PlaneLayout.create(3_100)  # W = 100: a ragged popc chunk
+    small_np = random_planes(1800, small_layout, rng)
+    edge_np = edge_planes(320, layout, rng)
+    w4_layout = PlaneLayout.create(128)  # W = 4: one staged slice per row
+    w4_np = edge_planes(300, w4_layout, rng)
+    long_layout = PlaneLayout.create(1_000_000)  # W = 31,252
+    long_np = random_planes(512, long_layout, rng)
+    stores = {name: (on_card(p), p, lay) for name, p, lay in (
+        ("store", store_np, layout), ("pj", pj_np, layout),
+        ("small", small_np, small_layout), ("edge", edge_np, layout),
+        ("w4", w4_np, w4_layout), ("long", long_np, long_layout))}
 
-    def plain(a, i_off, ni, b, j_off, nj):
-        return panel_counts_matmul(a[:, i_off:i_off + ni], b[:, j_off:j_off + nj])
-
+    # name, i storage, i_off, ni, j storage, j_off, nj, tri, sliced entry,
+    # rows of the case that the oracle sample must include
     cases = [
-        # name, kernel call, plain call, compare upper triangle only
         ("indexed 1024x1024, i_off=1000 into 4096 rows, separate planes_j j_off=300",
-         lambda: panel_counts_cuda_indexed(store, 1000, 300, 0, 1024, planes_j=pj),
-         lambda: plain(store, 1000, 1024, pj, 300, 1024), False),
+         "store", 1000, 1024, "pj", 300, 1024, 0, False, ()),
         ("indexed asymmetric panel_j=640, i_off=2048, j_off=1537",
-         lambda: panel_counts_cuda_indexed(store, 2048, 1537, 0, 1024, panel_j=640),
-         lambda: plain(store, 2048, 1024, store, 1537, 640), False),
+         "store", 2048, 1024, "store", 1537, 640, 0, False, ()),
         ("indexed tri=1 diagonal pair at 1024 (i<j compared)",
-         lambda: panel_counts_cuda_indexed(store, 1024, 1024, 1, 1024),
-         lambda: plain(store, 1024, 1024, store, 1024, 1024), True),
+         "store", 1024, 1024, "store", 1024, 1024, 1, False, ()),
         ("indexed ragged W=100 (3,100 sites), 1000x700 partial tiles",
-         lambda: panel_counts_cuda_indexed(small, 17, 1100, 0, 1000, panel_j=700),
-         lambda: plain(small, 17, 1000, small, 1100, 700), False),
-        ("sliced entry 1024x1024",
-         lambda: panel_counts_cuda(store[:, :1024].contiguous(),
-                                   pj[:, 1024:2048].contiguous()),
-         lambda: plain(store, 0, 1024, pj, 1024, 1024), False),
+         "small", 17, 1000, "small", 1100, 700, 0, False, ()),
+        ("sliced entry 1024x1024", "store", 0, 1024, "pj", 1024, 1024, 0, True, ()),
+        ("edge rows (all missing, het, hom-ref, hom-alt; sign-bit words), 320x320 at "
+         "100,000 sites", "edge", 0, 320, "edge", 0, 320, 0, False, range(6)),
+        ("W=4 (128 sites) with the edge rows, 300x300",
+         "w4", 0, 300, "w4", 0, 300, 0, False, range(6)),
+        ("256x256 at 1,000,000 sites (W=31,252)",
+         "long", 0, 256, "long", 256, 256, 0, False, ()),
     ]
     max_err = 0
-    first = None
-    for name, kern, ref, upper in cases:
-        got, exp = kern(), ref()
+    for name, si, i_off, ni, sj, j_off, nj, tri, sliced, edge_rows in cases:
+        (pi, pi_np, lay), (pjc, pj_np_c, _) = stores[si], stores[sj]
+        a, b = pi[:, i_off:i_off + ni], pjc[:, j_off:j_off + nj]
+        if sliced:
+            got = panel_counts_cuda(a.contiguous(), b.contiguous())
+        else:
+            got = panel_counts_cuda_indexed(pi, i_off, j_off, tri, ni, planes_j=pjc, panel_j=nj)
+        popc = panel_counts_popc_indexed(pi, i_off, j_off, tri, ni, planes_j=pjc, panel_j=nj)
+        refs = {"the five-block plain version": panel_counts_five_block(a, b),
+                "the 9-block plain version": panel_counts_matmul(a, b)}
         torch.cuda.synchronize()
-        first = first or got
-        for k, (g, e) in enumerate(zip(got, exp)):
-            if upper:
-                keep = torch.ones_like(g, dtype=torch.bool).triu(1)
-                g, e = g[keep], e[keep]
-            err = int((g.long() - e.long()).abs().max())
-            max_err = max(max_err, err)
-            check(err == 0, f"{name}: counter {got._fields[k]} differs by {err}")
-        say(f"phase 2: {name}: six counters equal the plain version")
+        keep = torch.ones((ni, nj), dtype=torch.bool, device=dev).triu(1) if tri else None
+        for what, ref in refs.items():
+            for who, counts in (("kernel", got), ("AND+popc kernel", popc)):
+                for k, (g, e) in enumerate(zip(counts, ref)):
+                    if keep is not None:
+                        g, e = g[keep], e[keep]
+                    err = int((g.long() - e.long()).abs().max())
+                    if who == "kernel":
+                        max_err = max(max_err, err)
+                    check(err == 0, f"{name}: {who} counter {got._fields[k]} differs "
+                                    f"from {what} by {err}")
+        # The numpy oracle on sampled pairs: 24 at random, and every named row
+        # against every named row and against 8 random rows.
+        pairs = list(zip(rng.integers(0, ni, 24).tolist(), rng.integers(0, nj, 24).tolist()))
+        for r in edge_rows:
+            pairs += [(r, c) for c in edge_rows]
+            pairs += [(r, int(c)) for c in rng.integers(0, nj, 4)]
+            pairs += [(int(c), r) for c in rng.integers(0, ni, 4)]
+        if tri:
+            pairs = [(min(x, y), max(x, y)) for x, y in pairs if x != y]
+        ii, jj = zip(*pairs)
+        counts = [c.cpu().numpy() for c in got]
+        gi = planes_to_genotypes(pi_np[:, [i_off + int(x) for x in ii]], lay)
+        gj = planes_to_genotypes(pj_np_c[:, [j_off + int(y) for y in jj]], lay)
+        for n, (x, y) in enumerate(zip(ii, jj)):
+            exp = oracle_counts(gi[n:n + 1], gj[n:n + 1])
+            for k, e in enumerate(exp):
+                check(int(counts[k][x, y]) == int(e[0, 0]),
+                      f"{name}: oracle pair ({x}, {y}): counter {got._fields[k]}")
+        say(f"phase 2: {name}: six counters equal the five-block and 9-block plain "
+            f"versions (kernel and AND+popc kernel) and {len(ii)} oracle pairs")
 
-    # 64 sampled pairs of the first case against the numpy oracle.
-    counts = [c.cpu().numpy() for c in first]
-    ii = rng.integers(0, 1024, 64)
-    jj = rng.integers(0, 1024, 64)
-    gi = planes_to_genotypes(store_np[:, 1000 + ii], layout)
-    gj = planes_to_genotypes(pj_np[:, 300 + jj], layout)
-    for n in range(64):
-        exp = oracle_counts(gi[n:n + 1], gj[n:n + 1])
-        for k, e in enumerate(exp):
-            check(int(counts[k][ii[n], jj[n]]) == int(e[0, 0]),
-                  f"oracle pair {n}: counter {first._fields[k]}")
-    say("phase 2: 64 sampled pairs equal the numpy oracle")
+    def timings(planes, words: int, iters: int) -> dict:
+        """CUDA-event times at the engine's shape: an off-diagonal 1024 x 1024
+        panel pair, and the diagonal pair with tri."""
+        off = lambda: panel_counts_cuda_indexed(planes, 0, 1024, 0, 1024)
+        t = {"ms": cuda_ms(off, iters, 3)}
+        t["prev_ms"] = cuda_ms(lambda: panel_counts_popc_indexed(planes, 0, 1024, 0, 1024),
+                               max(2, iters // 4), 1)
+        x = indicator_planes(planes[:, :1024]).reshape(3 * 1024, -1)
+        y = indicator_planes(planes[:, 1024:2048]).reshape(3 * 1024, -1)
+        t["library_ms"] = cuda_ms(lambda: torch._int_mm(x, y.t()), max(2, iters // 4), 1)
+        del x, y
+        t["plain_ms"] = cuda_ms(lambda: panel_counts_five_block(planes[:, :1024],
+                                                                planes[:, 1024:2048]), 2, 1)
+        t["ms_repeat"] = cuda_ms(off, iters, 1)
+        t["tri_ms"] = cuda_ms(lambda: panel_counts_cuda_indexed(planes, 0, 0, 1, 1024), iters, 1)
+        t["bound_ms"], t["bound_by"] = count_bound(1024, 1024, words)
+        torch.cuda.empty_cache()
+        return t
 
-    # The engine's shape: an off-diagonal 1024 x 1024 panel pair at 100k sites.
-    ms = cuda_ms(lambda: panel_counts_cuda_indexed(store, 0, 2048, 0, 1024),
-                 iters=20, warmup=3)
-    plain_ms = cuda_ms(lambda: plain(store, 0, 1024, store, 2048, 1024),
-                       iters=5, warmup=1)
-    say(f"phase 2: 1024x1024 pairs x {layout.words} words: kernel {ms:.3f} ms, "
-        f"plain version {plain_ms:.3f} ms ({card})")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    store = stores["store"][0]
+    del stores
+    torch.cuda.empty_cache()
+    t100k = timings(store, layout.words, 20)
+    say(f"phase 2: 1024x1024 pairs x {layout.words} words: kernel {t100k['ms']:.3f} ms "
+        f"(again {t100k['ms_repeat']:.3f}, tri {t100k['tri_ms']:.3f}), AND+popc "
+        f"{t100k['prev_ms']:.3f} ms, torch._int_mm of the "
+        f"9-block indicators {t100k['library_ms']:.3f} ms, plain version "
+        f"{t100k['plain_ms']:.3f} ms, bound {t100k['bound_ms']:.3f} ms ({card})")
+    del store
+    long_rows = on_card(random_planes(2048, long_layout, rng))
+    t1m = timings(long_rows, long_layout.words, 6)
+    del long_rows
+    torch.cuda.empty_cache()
+    say(f"phase 2: 1024x1024 pairs x {long_layout.words} words: kernel {t1m['ms']:.3f} ms "
+        f"(again {t1m['ms_repeat']:.3f}, tri {t1m['tri_ms']:.3f}), AND+popc "
+        f"{t1m['prev_ms']:.3f} ms, torch._int_mm "
+        f"{t1m['library_ms']:.3f} ms, plain version {t1m['plain_ms']:.3f} ms, bound "
+        f"{t1m['bound_ms']:.3f} ms ({card})")
+    return {"max_abs_err": max_err, **t100k, "at_1m_sites": t1m}
 
 
 def phase_engine(card: str):
@@ -283,7 +384,38 @@ def phase_engine(card: str):
         f"ibs2 == defined sites; {launches} kernel launches")
     say(f"phase 3: sweep {sweep_s:.3f} s, {pairs / sweep_s:,.0f} pairs/s, "
         f"peak device memory {peak / 2**20:.0f} MiB ({card})")
+    profile_sweep(engine, card)
     return launches, storage, rs
+
+
+def profile_sweep(engine, card: str) -> None:
+    """One more sweep under torch.profiler: the device's busy share (kernel
+    time over the sweep's wall time) and the kernels that take the most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t)
+    per_kernel: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name if len(e.name) < 60 else e.name[:57] + "..."
+            n, us = per_kernel.get(name, (0, 0.0))
+            per_kernel[name] = (n + 1, us + e.time_range.elapsed_us())
+    busy_us = sum(us for _, us in per_kernel.values())
+    if not busy_us:
+        say("phase 3: profiled sweep: the profiler saw no device time (busy share not "
+            "measured)")
+        return
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:4]
+    say(f"phase 3: profiled sweep {wall_us / 1e6:.3f} s, device busy "
+        f"{100 * busy_us / wall_us:.1f}% ({busy_us / 1e6:.3f} s of kernels); " + "; ".join(
+            f"{name}: {n} x {us / n / 1e3:.3f} ms = {100 * us / busy_us:.1f}%"
+            for name, (n, us) in top) + f" ({card})")
 
 
 def phase_keep_all(card: str):
@@ -586,7 +718,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from cuking_tpu_torch.ops import king_cuda  # noqa: F401
+        from cuking_tpu_torch.ops import king_cuda
     except ImportError as e:
         print(f"chip_smoke: cannot import the port (run from the repository "
               f"root): {e}", file=sys.stderr)
@@ -595,6 +727,7 @@ def main() -> int:
     card = phase_env()
     phase_build()
     record = phase_kernel(card)
+    popc_launches = king_cuda.popc_launches
     launches = {}
     launches["engine"], engine_storage, engine_rs = phase_engine(card)
     launches["engine_keep_all"], keep_storage, keep_rs = phase_keep_all(card)
@@ -605,6 +738,8 @@ def main() -> int:
         launches["rings_keep_all"] = phase_rings_keep_all(card, keep_storage, keep_rs)
         launches["cli_mesh"] = phase_cli_mesh(tmp, inp, split1)
     launches["king"] = phase_king_popcount(card)
+    check(king_cuda.popc_launches == popc_launches,
+          "the AND + popcount yardstick launched on the main path")
     say(json.dumps({"kernels": [{
         "name": "king_counts",
         "route": "cuda",

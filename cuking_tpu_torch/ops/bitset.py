@@ -40,8 +40,8 @@ HET, HOM = 0, 1  # plane indices
 
 # Default word-count multiple: 4 words = 16 bytes, so every sample row starts
 # 16-byte aligned and the CUDA count kernel (csrc/king_counts.cu) stages it
-# with one 16-byte load per thread.  The kernel masks its own ragged last
-# site chunk, so no larger multiple is needed; padding stays below 4 words
+# in 4-word slices, one 16-byte copy each, so no larger multiple is needed
+# and no slice is ragged; padding stays below 4 words
 # (0.1% of the words at 100k sites).  Results do not depend on the
 # multiple: padding sites are (1,1) = missing and mask themselves out.
 DEFAULT_WORDS_MULTIPLE = 4

@@ -14,11 +14,18 @@ returns six ``[NI, NJ]`` int32 counters.  With ``tri`` set (a diagonal panel
 pair), counter tiles wholly below the diagonal are left unwritten: callers
 mask with the strict global ``i < j`` predicate (cuking.cu:199).
 
-A CPU tensor takes the plain version (``king_mm.panel_counts_matmul``).  A
-CUDA tensor launches the kernel or raises; nothing falls back.  The kernel is
-built with ``nvcc`` at first use, from the sources in this package, into
-``_build/`` (rebuilt when the source is newer than the library), and bound
-through a plain C interface with ctypes.  ``launches`` counts kernel launches.
+A CPU tensor takes the plain version, :func:`panel_counts_five_block`: the
+same five int8 products as the kernel, through ``torch._int_mm``.  A CUDA
+tensor launches the kernel or raises; nothing falls back.  The kernels are
+built with ``nvcc`` at first use, from the sources in ``csrc/``, into
+``_build/`` (rebuilt when any file under ``csrc/`` is newer than the
+library), and bound through a plain C interface with ctypes.  ``launches``
+counts launches of the wgmma kernel.
+
+:func:`panel_counts_popc_indexed` runs the same contract through the first
+port's AND + popcount kernel, the yardstick the wgmma kernel is timed
+against.  Nothing on the main path calls it; ``popc_launches`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ import threading
 import torch
 
 from cuking_tpu_torch.ops.king_math import KingCounts
-from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+from cuking_tpu_torch.ops.king_mm import pad_rows, unpack_plane
 from cuking_tpu_torch.utils.status import (
     FailedPreconditionError,
     InvalidArgumentError,
@@ -37,23 +44,38 @@ from cuking_tpu_torch.utils.status import (
 )
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "king_counts.cu")
+CSRC = os.path.join(_PKG, "csrc")
+SOURCE = os.path.join(CSRC, "king_counts.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libking_counts.so")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# C entries of the library, all with king_counts_launch's signature.
+ENTRY = "king_counts_launch"            # the wgmma kernel: the main path
+POPC_ENTRY = "king_counts_popc_launch"  # the AND + popcount yardstick
 
-# Kernel launches since import (or since a caller reset it to 0).
-launches = 0
+# Kernel launches since import (or since a caller reset them to 0).
+launches = 0       # the wgmma kernel
+popc_launches = 0  # the AND + popcount yardstick
 
 _lock = threading.Lock()
 _lib = None
 
 
+def _newest_source_mtime() -> float:
+    """The newest modification time of any file under ``csrc/``, so that a
+    changed header rebuilds the library as a changed ``.cu`` does."""
+    newest = 0.0
+    for root, _, files in os.walk(CSRC):
+        for f in files:
+            newest = max(newest, os.path.getmtime(os.path.join(root, f)))
+    return newest
+
+
 def _compile_if_stale() -> str:
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE):
+    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= _newest_source_mtime():
         return ""
     import subprocess
 
@@ -79,9 +101,9 @@ def _compile_if_stale() -> str:
 
 
 def build() -> str:
-    """Compiles the kernel library if it is missing or older than its
-    source, and loads it.  Returns the compiler's report (``ptxas -v``), or
-    '' when the library was current."""
+    """Compiles the kernel library if it is missing or older than a file
+    under ``csrc/``, and loads it.  Returns the compiler's report
+    (``ptxas -v``), or '' when the library was current."""
     global _lib
     with _lock:
         report = _compile_if_stale()
@@ -90,14 +112,69 @@ def build() -> str:
 
             lib = ctypes.CDLL(LIB_PATH)
             p, i64 = ctypes.c_void_p, ctypes.c_longlong
-            lib.king_counts_launch.restype = ctypes.c_int
-            lib.king_counts_launch.argtypes = [
-                p, i64, i64, i64,  # planes_i, rows_i, i_off, ni
-                p, i64, i64, i64,  # planes_j, rows_j, j_off, nj
-                i64, ctypes.c_int, p, p,  # words, tri, out, stream
-            ]
+            for name in (ENTRY, POPC_ENTRY):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [
+                    p, i64, i64, i64,  # planes_i, rows_i, i_off, ni
+                    p, i64, i64, i64,  # planes_j, rows_j, j_off, nj
+                    i64, ctypes.c_int, p, p,  # words, tri, out, stream
+                ]
             _lib = lib
     return report
+
+
+def _five_block_indicators(planes: torch.Tensor):
+    """[2, N, W] packed → int8 [N, 32·W] H (het), v (hom-ref or hom-alt) and
+    u (+1 hom-alt, −1 hom-ref); missing sites are 0 in all three."""
+    het, hom = planes[0], planes[1]
+    a = unpack_plane(~het & hom)
+    r = unpack_plane(~het & ~hom)
+    return unpack_plane(het & ~hom), a + r, a - r
+
+
+def panel_counts_five_block(
+    planes_i: torch.Tensor,
+    planes_j: torch.Tensor,
+    site_chunk_words: int = 128,
+) -> KingCounts:
+    """The kernel's plain version: six KING counters from five int8 products.
+
+    planes_i: [2, NI, W] int32, planes_j: [2, NJ, W] int32 → six [NI, NJ]
+    int32.  One ``torch._int_mm`` of the stacked ``[H; v]`` indicators gives
+    HH, Hv, vH and vv, and a second gives uu (XY := X_i · Y_jᵀ over sites):
+
+        both_het = HH        het_i = HH + Hv        het_j = HH + vH
+        shared_sites = HH + Hv + vH + vv
+        opposing_hom = (vv − uu) / 2     concordant_hom = (vv + uu) / 2
+
+    The site axis runs in chunks of ``site_chunk_words`` (the last may be
+    shorter), as in ``king_mm.panel_counts_matmul``.  It computes every pair:
+    unlike the kernel it has no diagonal-tile skip.
+    """
+    ni, nj = planes_i.shape[1], planes_j.shape[1]
+    w = planes_i.shape[2]
+    hv = uu = None
+    for lo in range(0, w, site_chunk_words):
+        hi = min(lo + site_chunk_words, w)
+        h_i, v_i, u_i = _five_block_indicators(planes_i[:, :, lo:hi])
+        h_j, v_j, u_j = _five_block_indicators(planes_j[:, :, lo:hi])
+        part = torch._int_mm(pad_rows(torch.cat([h_i, v_i])),
+                             pad_rows(torch.cat([h_j, v_j])).t())
+        part_u = torch._int_mm(pad_rows(u_i), pad_rows(u_j).t())
+        hv = part if hv is None else hv.add_(part)
+        uu = part_u if uu is None else uu.add_(part_u)
+    hh, h_v = hv[:ni, :nj], hv[:ni, nj : 2 * nj]
+    v_h, vv = hv[ni : 2 * ni, :nj], hv[ni : 2 * ni, nj : 2 * nj]
+    vv64, uu64 = vv.long(), uu[:ni, :nj].long()
+    return KingCounts(
+        both_het=hh,
+        het_i=hh + h_v,
+        het_j=hh + v_h,
+        opposing_hom=((vv64 - uu64) // 2).int(),
+        concordant_hom=((vv64 + uu64) // 2).int(),
+        shared_sites=hh + h_v + v_h + vv,
+    )
 
 
 def _check(planes: torch.Tensor, off: int, n: int, name: str) -> None:
@@ -118,7 +195,8 @@ def _check(planes: torch.Tensor, off: int, n: int, name: str) -> None:
         )
 
 
-def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
+def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri,
+                  entry=ENTRY) -> KingCounts:
     i_off, ni, j_off, nj = int(i_off), int(ni), int(j_off), int(nj)
     _check(planes_i, i_off, ni, "planes_i")
     _check(planes_j, j_off, nj, "planes_j")
@@ -131,7 +209,7 @@ def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
             f"planes on different devices: {planes_i.device}, {planes_j.device}"
         )
     if planes_i.device.type == "cpu":
-        return panel_counts_matmul(
+        return panel_counts_five_block(
             planes_i[:, i_off : i_off + ni], planes_j[:, j_off : j_off + nj]
         )
     if planes_i.device.type != "cuda":
@@ -139,11 +217,11 @@ def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
             f"the count kernel runs on CUDA (or its plain version on the "
             f"CPU); got device {planes_i.device}"
         )
-    return _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri)
+    return _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri, entry)
 
 
-def _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
-    global launches
+def _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri, entry) -> KingCounts:
+    global launches, popc_launches
     words = planes_i.shape[2]
     if words % 4:
         raise InvalidArgumentError(
@@ -158,14 +236,17 @@ def _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
     out = torch.empty((6, ni, nj), dtype=torch.int32, device=planes_i.device)
     stream = torch.cuda.current_stream(planes_i.device).cuda_stream
     with torch.cuda.device(planes_i.device):
-        err = _lib.king_counts_launch(
+        err = getattr(_lib, entry)(
             planes_i.data_ptr(), planes_i.shape[1], i_off, ni,
             planes_j.data_ptr(), planes_j.shape[1], j_off, nj,
             words, 1 if tri else 0, out.data_ptr(), stream,
         )
     if err:
-        raise UnknownError(f"king_counts kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise UnknownError(f"{entry} failed: CUDA error {err}")
+    if entry == ENTRY:
+        launches += 1
+    else:
+        popc_launches += 1
     return KingCounts(*out.unbind(0))
 
 
@@ -195,3 +276,20 @@ def panel_counts_cuda_indexed(
     planes_j = planes if planes_j is None else planes_j
     panel_j = panel if panel_j is None else panel_j
     return _panel_counts(planes, i_off, panel, planes_j, j_off, panel_j, tri)
+
+
+def panel_counts_popc_indexed(
+    planes: torch.Tensor,
+    i_off: int,
+    j_off: int,
+    tri,
+    panel: int,
+    planes_j: torch.Tensor | None = None,
+    panel_j: int | None = None,
+) -> KingCounts:
+    """:func:`panel_counts_cuda_indexed` through the AND + popcount kernel:
+    the yardstick, off the main path."""
+    planes_j = planes if planes_j is None else planes_j
+    panel_j = panel if panel_j is None else panel_j
+    return _panel_counts(planes, i_off, panel, planes_j, j_off, panel_j, tri,
+                         entry=POPC_ENTRY)

@@ -18,11 +18,12 @@ with XY := X_i · Y_jᵀ.  Stacking X = [H; A; D] per panel gives one
 ``[3·NI, S] × [3·NJ, S]ᵀ`` int8→int32 product per site chunk
 (``torch._int_mm``) that yields all nine blocks; counts are integer-exact.
 
-This is the plain version of the CUDA count kernel (ops/king_cuda.py): the
-wrapper runs it for CPU tensors, and the tests and ``chip_smoke.py`` hold the
-kernel against it.  Planes are int32 views of the uint32 words, because CPU
-PyTorch has no ``>>`` or ``~`` on uint32; shifts of int32 are arithmetic, so
-every shift is followed by ``& 1``.
+This is the JAX package's own formulation, behind ``--kernel matmul``.  The
+CUDA count kernel computes the same counters from five products instead of
+nine (``king_cuda.panel_counts_five_block`` is its plain version); the tests
+and ``chip_smoke.py`` hold the kernel against both.  Planes are int32 views
+of the uint32 words, because CPU PyTorch has no ``>>`` or ``~`` on uint32;
+shifts of int32 are arithmetic, so every shift is followed by ``& 1``.
 """
 
 from __future__ import annotations
@@ -68,7 +69,7 @@ def counts_from_gram(gram: torch.Tensor, ni: int, nj: int) -> KingCounts:
     )
 
 
-def _pad_rows(x: torch.Tensor) -> torch.Tensor:
+def pad_rows(x: torch.Tensor) -> torch.Tensor:
     """Zero rows up to a multiple of 8 and at least 24: CUDA's ``_int_mm``
     takes only those shapes.  Zero rows add nothing to the Gram."""
     rows = max(24, -(-x.shape[0] // 8) * 8)
@@ -95,8 +96,8 @@ def panel_counts_matmul(
     gram = None
     for lo in range(0, w, site_chunk_words):
         hi = min(lo + site_chunk_words, w)
-        xi = _pad_rows(indicator_planes(planes_i[:, :, lo:hi]).reshape(3 * ni, -1))
-        xj = _pad_rows(indicator_planes(planes_j[:, :, lo:hi]).reshape(3 * nj, -1))
+        xi = pad_rows(indicator_planes(planes_i[:, :, lo:hi]).reshape(3 * ni, -1))
+        xj = pad_rows(indicator_planes(planes_j[:, :, lo:hi]).reshape(3 * nj, -1))
         part = torch._int_mm(xi, xj.t())
         gram = part if gram is None else gram.add_(part)
     return counts_from_gram(gram[: 3 * ni, : 3 * nj], ni, nj)

@@ -3,9 +3,12 @@ Pallas kernel (interpret mode, as tests/test_king_kernels.py runs it) and the
 numpy oracle, exactly; and the port's popcount path (ops/king_popcount.py)
 against the JAX package's ``panel_counts_popcount``.
 
-On the CPU both entries take the plain PyTorch version (ops/king_mm.py); the
-kernel itself is held against that version on the card by
-tests/test_torch_gpu.py and chip_smoke.py."""
+On the CPU both entries take the kernel's plain version,
+``king_cuda.panel_counts_five_block``; the kernel itself is held against
+that version on the card by tests/test_torch_gpu.py and chip_smoke.py.
+Every storage carries edge rows (all missing, all het, all hom-ref, all
+hom-alt, and rows whose words have the sign bit set) among its random
+rows."""
 
 import numpy as np
 import pytest
@@ -16,7 +19,12 @@ import jax.numpy as jnp
 from cuking_tpu.ops.king_jnp import panel_counts_popcount as jax_popcount
 from cuking_tpu.ops.king_pallas import panel_counts_pallas, panel_counts_pallas_indexed
 from cuking_tpu_torch.ops.bitset import PlaneLayout, pack_genotypes
-from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
+from cuking_tpu_torch.ops import king_cuda
+from cuking_tpu_torch.ops.king_cuda import (
+    panel_counts_cuda,
+    panel_counts_cuda_indexed,
+    panel_counts_five_block,
+)
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 from cuking_tpu_torch.ops.king_popcount import panel_counts_popcount, popcount32
 from cuking_tpu_torch.ops.oracle import oracle_counts
@@ -26,10 +34,30 @@ from cuking_tpu_torch.utils.synthetic import random_genotypes
 PALLAS = dict(site_chunk_words=8, tile_i=8, tile_j=8, interpret=True)
 
 
+def _edge_rows(layout):
+    """[6, S] genotypes: all missing, all het, all hom-ref, all hom-alt, and
+    two rows whose bit-31 sites (s // W == 31) differ from the rest, so their
+    het or hom words have the sign bit set and the others do not."""
+    top = np.arange(layout.num_sites) // layout.words == 31
+    return np.stack([
+        np.full(layout.num_sites, -1), np.full(layout.num_sites, 1),
+        np.full(layout.num_sites, 0), np.full(layout.num_sites, 2),
+        np.where(top, 1, 2), np.where(top, 2, 0),
+    ]).astype(np.int8)
+
+
+# Storage rows that hold the edge rows: inside every case's i and j ranges.
+EDGE_AT = (9, 25)
+
+
 def _planes(rows, num_sites, seed):
     g = random_genotypes(rows, num_sites, missing_rate=0.12, seed=seed,
                          num_related_pairs=2)
-    return g, pack_genotypes(g, PlaneLayout.create(num_sites))
+    layout = PlaneLayout.create(num_sites)
+    for r in EDGE_AT:
+        if r + 6 <= rows:
+            g[r:r + 6] = _edge_rows(layout)
+    return g, pack_genotypes(g, layout)
 
 
 def _t(planes_np):
@@ -51,6 +79,9 @@ CASES = [
     (1023, 40, 0, 8, 16, 24, True, 0),
     (2049, 48, 8, 24, 16, 8, False, 0),
     (1023, 32, 8, 8, 16, 16, False, 1),
+    (4000, 40, 16, 8, 24, 32, True, 0),
+    (129, 40, 0, 0, 40, 40, False, 1),
+    (96, 40, 16, 0, 24, 16, True, 0),
 ]
 
 
@@ -89,6 +120,40 @@ def test_plain_version_ragged_site_chunks(chunk):
     got = panel_counts_matmul(_t(planes[:, :12]), _t(planes[:, 12:]),
                               site_chunk_words=chunk)
     _assert_counts_equal(got, oracle_counts(g[:12], g[12:]))
+
+
+@pytest.mark.parametrize("sites,ni,nj,chunk", [
+    (100, 8, 24, 128), (1023, 16, 24, 5), (2049, 24, 16, 128), (4000, 24, 16, 7),
+])
+def test_five_block_plain_version_matches_pallas_and_oracle(sites, ni, nj, chunk):
+    """The kernel's plain version by itself, with ragged site chunks."""
+    g, planes = _planes(ni + nj, sites, seed=13 * sites)
+    pi, pj = planes[:, :ni].copy(), planes[:, ni:].copy()
+    got = panel_counts_five_block(_t(pi), _t(pj), site_chunk_words=chunk)
+    ref = panel_counts_pallas(jnp.asarray(pi), jnp.asarray(pj), **PALLAS)
+    _assert_counts_equal(got, ref)
+    _assert_counts_equal(got, oracle_counts(g[:ni], g[ni:]))
+    _assert_counts_equal(got, panel_counts_matmul(_t(pi), _t(pj)))
+
+
+def test_cpu_entries_take_the_five_block_plain_version(monkeypatch):
+    """On the CPU both entries run ``panel_counts_five_block`` on their row
+    ranges, and neither launches a kernel."""
+    calls = []
+
+    def spy(planes_i, planes_j, site_chunk_words=128):
+        calls.append((planes_i.shape[1], planes_j.shape[1]))
+        return panel_counts_five_block(planes_i, planes_j, site_chunk_words)
+
+    monkeypatch.setattr(king_cuda, "panel_counts_five_block", spy)
+    g, planes = _planes(40, 300, seed=5)
+    before = (king_cuda.launches, king_cuda.popc_launches)
+    got = panel_counts_cuda_indexed(_t(planes), 8, 16, 0, 16, panel_j=24)
+    _assert_counts_equal(got, oracle_counts(g[8:24], g[16:40]))
+    got = panel_counts_cuda(_t(planes[:, :8].copy()), _t(planes[:, 8:].copy()))
+    _assert_counts_equal(got, oracle_counts(g[:8], g[8:]))
+    assert calls == [(16, 24), (8, 32)]
+    assert (king_cuda.launches, king_cuda.popc_launches) == before
 
 
 def test_entries_check_their_inputs():

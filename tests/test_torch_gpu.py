@@ -1,4 +1,5 @@
-"""The CUDA count kernel against its plain PyTorch version, on the card.
+"""The CUDA count kernel against its plain PyTorch versions and its
+AND + popcount yardstick, on the card.
 
 Marked ``gpu``: a CUDA kernel has no CPU mode, so these skip where
 ``torch.cuda.is_available()`` is false.  This file imports no jax, so it also
@@ -13,7 +14,12 @@ import torch
 
 from cuking_tpu_torch.ops import king_cuda
 from cuking_tpu_torch.ops.bitset import PlaneLayout, pack_genotypes
-from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
+from cuking_tpu_torch.ops.king_cuda import (
+    panel_counts_cuda,
+    panel_counts_cuda_indexed,
+    panel_counts_five_block,
+    panel_counts_popc_indexed,
+)
 from cuking_tpu_torch.models.king import KingConfig, KingEngine
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 from cuking_tpu_torch.parallel.ring import (
@@ -54,6 +60,48 @@ def test_cuda_kernel_matches_plain_version(cuda_device, sites, i_off, j_off,
             keep = torch.ones_like(g, dtype=torch.bool).triu(1)
             g, e = g[keep], e[keep]
         assert torch.equal(g, e), name
+
+
+def _edge_planes(rows, layout, rng):
+    """Random planes whose first 6 rows are all missing, all het, all
+    hom-ref, all hom-alt, and het or hom-alt only at the bit-31 sites (sign
+    bit set) with hom-ref elsewhere; padding sites stay missing."""
+    w = np.arange(layout.words)
+    pad = np.zeros(layout.words, np.uint32)
+    for b in range(32):
+        pad |= np.where(b * layout.words + w >= layout.num_sites, np.uint32(1 << b), 0
+                        ).astype(np.uint32)
+    planes = rng.integers(0, 1 << 32, size=(2, rows, layout.words), dtype=np.uint32) | pad
+    ones = np.full(layout.words, 0xFFFFFFFF, np.uint32)
+    sign = np.uint32(0x80000000) | pad
+    for row, (het, hom) in enumerate([(ones, ones), (ones, pad), (pad, pad),
+                                      (pad, ones), (sign, pad), (pad, sign)]):
+        planes[0, row], planes[1, row] = het, hom
+    return planes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sites,n,tri", [
+    (100_000, 320, 0), (128, 300, 0), (128, 300, 1), (1_000_000, 130, 0),
+])
+def test_cuda_kernel_matches_five_block_and_popc_on_edge_rows(cuda_device, sites, n, tri):
+    """Edge rows at 100,000 sites, at W = 4 (128 sites) and at 1,000,000
+    sites: the kernel equals the five-block plain version, and so does the
+    AND + popcount kernel; each launch is counted once, on its own counter."""
+    layout = PlaneLayout.create(sites)
+    planes = torch.from_numpy(
+        _edge_planes(n, layout, np.random.default_rng(sites)).view(np.int32)
+    ).to(cuda_device)
+    before = (king_cuda.launches, king_cuda.popc_launches)
+    got = {"kernel": panel_counts_cuda_indexed(planes, 0, 0, tri, n),
+           "popc": panel_counts_popc_indexed(planes, 0, 0, tri, n)}
+    assert (king_cuda.launches, king_cuda.popc_launches) == (before[0] + 1, before[1] + 1)
+    exp = panel_counts_five_block(planes, planes)
+    torch.cuda.synchronize()
+    keep = torch.ones((n, n), dtype=torch.bool, device=cuda_device).triu(1 if tri else -n)
+    for who, counts in got.items():
+        for name, g, e in zip(counts._fields, counts, exp):
+            assert torch.equal(g[keep], e[keep]), (who, name)
 
 
 @pytest.mark.gpu
