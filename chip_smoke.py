@@ -22,8 +22,9 @@ Phases (any failure exits nonzero):
    times at the engine's shape (1024 x 1024 pairs, off the diagonal and
    ``tri``) at 100,000 and at 1,000,000 sites: the kernel, the AND +
    popcount kernel (``prev_ms``), one ``torch._int_mm`` of the stacked
-   9-block indicators (``library_ms``), the plain version, and the bound
-   computed from the shapes.
+   9-block indicators (``library_ms``), the two ``torch._int_mm`` calls of
+   the five products, the kernel's own operations (``library_five_ms``),
+   the plain version, and the bound computed from the shapes.
 3. The main path: ``KingEngine`` at 32,768 samples x 100,000 sites with 64
    planted duplicate pairs; exactly those must come out, with kin == 0.5.
    Kernel launch counts are read from this run.
@@ -78,33 +79,6 @@ def check(cond: bool, msg: str) -> None:
 
 def say(msg: str) -> None:
     print(msg, flush=True)
-
-
-def padding_mask(layout) -> np.ndarray:
-    """[W] uint32: the bits of each word that hold padding sites (site
-    s = b·W + w ≥ num_sites), which must read as missing."""
-    w = np.arange(layout.words, dtype=np.int64)
-    mask = np.zeros(layout.words, dtype=np.uint32)
-    for b in range(32):
-        mask |= np.where(b * layout.words + w >= layout.num_sites,
-                         np.uint32(1 << b), np.uint32(0))
-    return mask
-
-
-def fill_random_planes(planes: np.ndarray, layout, rng, block: int = 4096) -> None:
-    """Uniform random het/hom bits (so 1/4 of the sites are missing), padding
-    sites set missing; written in row blocks to bound host memory."""
-    pad = padding_mask(layout)
-    for lo in range(0, planes.shape[1], block):
-        hi = min(lo + block, planes.shape[1])
-        planes[:, lo:hi] = rng.integers(
-            0, 1 << 32, size=(2, hi - lo, layout.words), dtype=np.uint32) | pad
-
-
-def random_planes(rows: int, layout, rng) -> np.ndarray:
-    planes = np.empty((2, rows, layout.words), dtype=np.uint32)
-    fill_random_planes(planes, layout, rng)
-    return planes
 
 
 def defined_sites(planes: np.ndarray, row: int) -> int:
@@ -178,26 +152,12 @@ def count_bound(ni: int, nj: int, words: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def edge_planes(rows: int, layout, rng) -> np.ndarray:
-    """Random planes whose first 6 rows are all missing, all het, all
-    hom-ref, all hom-alt, and two rows whose words have the sign bit set
-    (het at the bit-31 sites and hom-ref elsewhere; hom-alt at the bit-31
-    sites and hom-ref elsewhere).  Padding sites stay missing."""
-    planes = random_planes(rows, layout, rng)
-    pad = padding_mask(layout)
-    ones = np.full(layout.words, 0xFFFFFFFF, np.uint32)
-    sign = np.uint32(0x80000000) | pad
-    for row, (het, hom) in enumerate([(ones, ones), (ones, pad), (pad, pad),
-                                      (pad, ones), (sign, pad), (pad, sign)]):
-        planes[0, row], planes[1, row] = het, hom
-    return planes
-
-
 def phase_kernel(card: str) -> dict:
     import torch
 
     from cuking_tpu_torch.ops.bitset import PlaneLayout, planes_to_genotypes
     from cuking_tpu_torch.ops.king_cuda import (
+        five_block_indicators,
         panel_counts_cuda,
         panel_counts_cuda_indexed,
         panel_counts_five_block,
@@ -205,6 +165,7 @@ def phase_kernel(card: str) -> dict:
     )
     from cuking_tpu_torch.ops.king_mm import indicator_planes, panel_counts_matmul
     from cuking_tpu_torch.ops.oracle import oracle_counts
+    from cuking_tpu_torch.utils.synthetic import edge_planes, random_planes
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda", 0)
@@ -301,6 +262,14 @@ def phase_kernel(card: str) -> dict:
         y = indicator_planes(planes[:, 1024:2048]).reshape(3 * 1024, -1)
         t["library_ms"] = cuda_ms(lambda: torch._int_mm(x, y.t()), max(2, iters // 4), 1)
         del x, y
+        h_i, v_i, u_i = five_block_indicators(planes[:, :1024])
+        h_j, v_j, u_j = five_block_indicators(planes[:, 1024:2048])
+        hv_i, hv_j = torch.cat([h_i, v_i]), torch.cat([h_j, v_j])
+        del h_i, v_i, h_j, v_j
+        t["library_five_ms"] = cuda_ms(
+            lambda: (torch._int_mm(hv_i, hv_j.t()), torch._int_mm(u_i, u_j.t())),
+            max(2, iters // 4), 1)
+        del hv_i, hv_j, u_i, u_j
         t["plain_ms"] = cuda_ms(lambda: panel_counts_five_block(planes[:, :1024],
                                                                 planes[:, 1024:2048]), 2, 1)
         t["ms_repeat"] = cuda_ms(off, iters, 1)
@@ -316,7 +285,8 @@ def phase_kernel(card: str) -> dict:
     say(f"phase 2: 1024x1024 pairs x {layout.words} words: kernel {t100k['ms']:.3f} ms "
         f"(again {t100k['ms_repeat']:.3f}, tri {t100k['tri_ms']:.3f}), AND+popc "
         f"{t100k['prev_ms']:.3f} ms, torch._int_mm of the "
-        f"9-block indicators {t100k['library_ms']:.3f} ms, plain version "
+        f"9-block indicators {t100k['library_ms']:.3f} ms, of the five products "
+        f"{t100k['library_five_ms']:.3f} ms, plain version "
         f"{t100k['plain_ms']:.3f} ms, bound {t100k['bound_ms']:.3f} ms ({card})")
     del store
     long_rows = on_card(random_planes(2048, long_layout, rng))
@@ -325,8 +295,8 @@ def phase_kernel(card: str) -> dict:
     torch.cuda.empty_cache()
     say(f"phase 2: 1024x1024 pairs x {long_layout.words} words: kernel {t1m['ms']:.3f} ms "
         f"(again {t1m['ms_repeat']:.3f}, tri {t1m['tri_ms']:.3f}), AND+popc "
-        f"{t1m['prev_ms']:.3f} ms, torch._int_mm "
-        f"{t1m['library_ms']:.3f} ms, plain version {t1m['plain_ms']:.3f} ms, bound "
+        f"{t1m['prev_ms']:.3f} ms, torch._int_mm 9-block "
+        f"{t1m['library_ms']:.3f} ms, five products {t1m['library_five_ms']:.3f} ms, plain version {t1m['plain_ms']:.3f} ms, bound "
         f"{t1m['bound_ms']:.3f} ms ({card})")
     return {"max_abs_err": max_err, **t100k, "at_1m_sites": t1m}
 
@@ -339,6 +309,7 @@ def phase_engine(card: str):
     from cuking_tpu_torch.ops.bitset import PlaneLayout
     from cuking_tpu_torch.parallel.submatrix import Submatrix
     from cuking_tpu_torch.utils.stopwatch import StageLogger
+    from cuking_tpu_torch.utils.synthetic import fill_random_planes
 
     n = 32_768
     rng = np.random.default_rng(SEED + 1)
@@ -425,6 +396,7 @@ def phase_keep_all(card: str):
     from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.ops.bitset import PlaneLayout
     from cuking_tpu_torch.parallel.submatrix import Submatrix
+    from cuking_tpu_torch.utils.synthetic import fill_random_planes
 
     n = 4096
     rng = np.random.default_rng(SEED + 2)

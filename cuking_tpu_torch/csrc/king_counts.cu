@@ -496,13 +496,12 @@ int king_counts_launch(const void* planes_i, long long rows_i, long long i_off,
                        long long ni, const void* planes_j, long long rows_j,
                        long long j_off, long long nj, long long words, int tri,
                        void* out, void* stream) {
-  static bool configured = false;  // the dynamic shared memory opt-in
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        king_counts_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
+  // The opt-in to more than 48 KiB of dynamic shared memory belongs to the
+  // current device's context, so it is set on every launch: a process may
+  // launch on several devices, from several threads.
+  const cudaError_t err = cudaFuncSetAttribute(
+      king_counts_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((unsigned)((nj + kWgBN - 1) / kWgBN), (unsigned)((ni + kWgBM - 1) / kWgBM));
   king_counts_wgmma_kernel<<<grid, kWgThreads, kWgSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(planes_i), rows_i, i_off, ni,

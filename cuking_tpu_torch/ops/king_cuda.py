@@ -124,7 +124,7 @@ def build() -> str:
     return report
 
 
-def _five_block_indicators(planes: torch.Tensor):
+def five_block_indicators(planes: torch.Tensor):
     """[2, N, W] packed → int8 [N, 32·W] H (het), v (hom-ref or hom-alt) and
     u (+1 hom-alt, −1 hom-ref); missing sites are 0 in all three."""
     het, hom = planes[0], planes[1]
@@ -157,8 +157,8 @@ def panel_counts_five_block(
     hv = uu = None
     for lo in range(0, w, site_chunk_words):
         hi = min(lo + site_chunk_words, w)
-        h_i, v_i, u_i = _five_block_indicators(planes_i[:, :, lo:hi])
-        h_j, v_j, u_j = _five_block_indicators(planes_j[:, :, lo:hi])
+        h_i, v_i, u_i = five_block_indicators(planes_i[:, :, lo:hi])
+        h_j, v_j, u_j = five_block_indicators(planes_j[:, :, lo:hi])
         part = torch._int_mm(pad_rows(torch.cat([h_i, v_i])),
                              pad_rows(torch.cat([h_j, v_j])).t())
         part_u = torch._int_mm(pad_rows(u_i), pad_rows(u_j).t())
@@ -195,9 +195,7 @@ def _check(planes: torch.Tensor, off: int, n: int, name: str) -> None:
         )
 
 
-def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri,
-                  entry=ENTRY) -> KingCounts:
-    i_off, ni, j_off, nj = int(i_off), int(ni), int(j_off), int(nj)
+def _check_pair(planes_i, i_off, ni, planes_j, j_off, nj) -> None:
     _check(planes_i, i_off, ni, "planes_i")
     _check(planes_j, j_off, nj, "planes_j")
     if planes_i.shape[2] != planes_j.shape[2]:
@@ -208,6 +206,12 @@ def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri,
         raise InvalidArgumentError(
             f"planes on different devices: {planes_i.device}, {planes_j.device}"
         )
+
+
+def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
+    global launches
+    i_off, ni, j_off, nj = int(i_off), int(ni), int(j_off), int(nj)
+    _check_pair(planes_i, i_off, ni, planes_j, j_off, nj)
     if planes_i.device.type == "cpu":
         return panel_counts_five_block(
             planes_i[:, i_off : i_off + ni], planes_j[:, j_off : j_off + nj]
@@ -217,11 +221,13 @@ def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri,
             f"the count kernel runs on CUDA (or its plain version on the "
             f"CPU); got device {planes_i.device}"
         )
-    return _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri, entry)
+    counts = _launch(ENTRY, planes_i, i_off, ni, planes_j, j_off, nj, tri)
+    launches += 1
+    return counts
 
 
-def _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri, entry) -> KingCounts:
-    global launches, popc_launches
+def _launch(entry, planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
+    """Launches the library's C entry ``entry`` on checked CUDA planes."""
     words = planes_i.shape[2]
     if words % 4:
         raise InvalidArgumentError(
@@ -243,10 +249,6 @@ def _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri, entry) -> KingCounts:
         )
     if err:
         raise UnknownError(f"{entry} failed: CUDA error {err}")
-    if entry == ENTRY:
-        launches += 1
-    else:
-        popc_launches += 1
     return KingCounts(*out.unbind(0))
 
 
@@ -288,8 +290,17 @@ def panel_counts_popc_indexed(
     panel_j: int | None = None,
 ) -> KingCounts:
     """:func:`panel_counts_cuda_indexed` through the AND + popcount kernel:
-    the yardstick, off the main path."""
+    the yardstick, off the main path.  CUDA tensors only: it exists to be
+    timed against the wgmma kernel on the card."""
+    global popc_launches
     planes_j = planes if planes_j is None else planes_j
     panel_j = panel if panel_j is None else panel_j
-    return _panel_counts(planes, i_off, panel, planes_j, j_off, panel_j, tri,
-                         entry=POPC_ENTRY)
+    i_off, panel, j_off, panel_j = int(i_off), int(panel), int(j_off), int(panel_j)
+    _check_pair(planes, i_off, panel, planes_j, j_off, panel_j)
+    if planes.device.type != "cuda":
+        raise InvalidArgumentError(
+            f"the AND + popcount yardstick runs on CUDA only; got device {planes.device}"
+        )
+    counts = _launch(POPC_ENTRY, planes, i_off, panel, planes_j, j_off, panel_j, tri)
+    popc_launches += 1
+    return counts

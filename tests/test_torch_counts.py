@@ -24,12 +24,13 @@ from cuking_tpu_torch.ops.king_cuda import (
     panel_counts_cuda,
     panel_counts_cuda_indexed,
     panel_counts_five_block,
+    panel_counts_popc_indexed,
 )
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 from cuking_tpu_torch.ops.king_popcount import panel_counts_popcount, popcount32
 from cuking_tpu_torch.ops.oracle import oracle_counts
 from cuking_tpu_torch.utils.status import InvalidArgumentError
-from cuking_tpu_torch.utils.synthetic import random_genotypes
+from cuking_tpu_torch.utils.synthetic import edge_planes, padding_mask, random_genotypes
 
 PALLAS = dict(site_chunk_words=8, tile_i=8, tile_j=8, interpret=True)
 
@@ -164,6 +165,26 @@ def test_entries_check_their_inputs():
         panel_counts_cuda_indexed(planes.to(torch.int64), 0, 0, 0, 8)
     with pytest.raises(InvalidArgumentError, match="W=4, planes_j W=8"):
         panel_counts_cuda(planes, torch.zeros((2, 16, 8), dtype=torch.int32))
+    with pytest.raises(InvalidArgumentError, match="CUDA only"):
+        panel_counts_popc_indexed(planes, 0, 8, 0, 8)
+    with pytest.raises(InvalidArgumentError, match="out of bounds"):
+        panel_counts_popc_indexed(planes, 0, 8, 0, 16)
+
+
+@pytest.mark.parametrize("sites", [128, 1000, 3100])
+def test_edge_planes_pack_the_edge_rows(sites):
+    """``edge_planes`` (chip_smoke.py and the GPU tests) writes its six edge
+    rows as ``pack_genotypes`` packs them, sign bits included, and leaves
+    the padding sites of every row missing."""
+    layout = PlaneLayout.create(sites)
+    planes = edge_planes(10, layout, np.random.default_rng(sites))
+    top = np.arange(sites) // layout.words == 31
+    g = np.stack([np.full(sites, -1), np.full(sites, 1), np.full(sites, 0),
+                  np.full(sites, 2), np.where(top, 1, 0), np.where(top, 2, 0)])
+    assert np.array_equal(planes[:, :6], pack_genotypes(g.astype(np.int8), layout))
+    assert (planes[0, 4] >> 31).all() and (planes[1, 5] >> 31).all()
+    pad = padding_mask(layout)
+    assert np.array_equal(planes & pad, np.broadcast_to(pad, planes.shape))
 
 
 @pytest.mark.parametrize("sites,ni,nj,row_block", [

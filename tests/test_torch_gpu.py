@@ -27,7 +27,7 @@ from cuking_tpu_torch.parallel.ring import (
     all_pairs_sharded,
     ring_output_to_resultset,
 )
-from cuking_tpu_torch.utils.synthetic import random_genotypes
+from cuking_tpu_torch.utils.synthetic import edge_planes, random_genotypes
 
 
 @pytest.fixture
@@ -62,24 +62,6 @@ def test_cuda_kernel_matches_plain_version(cuda_device, sites, i_off, j_off,
         assert torch.equal(g, e), name
 
 
-def _edge_planes(rows, layout, rng):
-    """Random planes whose first 6 rows are all missing, all het, all
-    hom-ref, all hom-alt, and het or hom-alt only at the bit-31 sites (sign
-    bit set) with hom-ref elsewhere; padding sites stay missing."""
-    w = np.arange(layout.words)
-    pad = np.zeros(layout.words, np.uint32)
-    for b in range(32):
-        pad |= np.where(b * layout.words + w >= layout.num_sites, np.uint32(1 << b), 0
-                        ).astype(np.uint32)
-    planes = rng.integers(0, 1 << 32, size=(2, rows, layout.words), dtype=np.uint32) | pad
-    ones = np.full(layout.words, 0xFFFFFFFF, np.uint32)
-    sign = np.uint32(0x80000000) | pad
-    for row, (het, hom) in enumerate([(ones, ones), (ones, pad), (pad, pad),
-                                      (pad, ones), (sign, pad), (pad, sign)]):
-        planes[0, row], planes[1, row] = het, hom
-    return planes
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("sites,n,tri", [
     (100_000, 320, 0), (128, 300, 0), (128, 300, 1), (1_000_000, 130, 0),
@@ -90,7 +72,7 @@ def test_cuda_kernel_matches_five_block_and_popc_on_edge_rows(cuda_device, sites
     AND + popcount kernel; each launch is counted once, on its own counter."""
     layout = PlaneLayout.create(sites)
     planes = torch.from_numpy(
-        _edge_planes(n, layout, np.random.default_rng(sites)).view(np.int32)
+        edge_planes(n, layout, np.random.default_rng(sites)).view(np.int32)
     ).to(cuda_device)
     before = (king_cuda.launches, king_cuda.popc_launches)
     got = {"kernel": panel_counts_cuda_indexed(planes, 0, 0, tri, n),
@@ -102,6 +84,39 @@ def test_cuda_kernel_matches_five_block_and_popc_on_edge_rows(cuda_device, sites
     for who, counts in got.items():
         for name, g, e in zip(counts._fields, counts, exp):
             assert torch.equal(g[keep], e[keep]), (who, name)
+
+
+@pytest.mark.gpu
+def test_every_card_launches_the_kernel_and_runs_the_ring(cuda_device):
+    """The kernel on every visible card, in one process and in both orders
+    of first use, against the five-block plain version on that card; then
+    the ring with one position per card (the ``--use_mesh`` default)
+    against the engine.  On a one-card machine this is cuda:0 alone."""
+    count = torch.cuda.device_count()
+    layout = PlaneLayout.create(3_100)
+    planes_np = edge_planes(260, layout, np.random.default_rng(count))
+    for k in [*range(count), *reversed(range(count))]:
+        planes = torch.from_numpy(planes_np.view(np.int32)).to(f"cuda:{k}")
+        got = panel_counts_cuda_indexed(planes, 0, 130, 0, 130)
+        exp = panel_counts_five_block(planes[:, :130], planes[:, 130:])
+        for name, g, e in zip(got._fields, got, exp):
+            assert g.device == planes.device, (k, name)
+            assert torch.equal(g, e), (k, name)
+    g = random_genotypes(300, 3_000, missing_rate=0.05, seed=count, num_related_pairs=4)
+    before = king_cuda.launches
+    out = all_pairs_sharded(
+        pack_genotypes(g, PlaneLayout.create(3_000)), 300,
+        RingMesh([f"cuda:{k}" for k in range(count)]), panel_counts_cuda,
+        kin_threshold=-2.0, capacity_per_device=1 << 16,
+        indexed_kernel=panel_counts_cuda_indexed)
+    assert king_cuda.launches > before
+    got = ring_output_to_resultset(out)
+    ref = KingEngine.from_genotypes(
+        g, KingConfig(kernel="cuda", device="cuda", panel=128, kin_threshold=-2.0)).run()
+    assert len(got) == len(ref) > 0
+    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
 
 
 @pytest.mark.gpu
