@@ -48,9 +48,24 @@ Phases (any failure exits nonzero):
 9. Dense ``king()`` at 2,048 x 100,000 on the card against the plain version
    on the card (kin as uint32 bits, NaN included), and the popcount engine
    at 1,024 x 10,000 against the cuda engine.
+10. The Cloud Batch fan-out: a synthetic Parquet input of 2,048 samples x
+    100,000 sites (5% missing, 4 partitions, planted related pairs), the
+    Batch job rendered for ``--split-factor 2`` with a shared
+    ``--profile_dir``, each of its 3 task commands run under ``/bin/sh -c``
+    with ``BATCH_TASK_INDEX`` set, as Batch runs them in the container, then
+    ``wait_for_completion`` on a stub that reports ``SUCCEEDED`` (it writes
+    ``_SUCCESS``).  The merged partitions must equal a split-1 CLI run, and
+    each task's trace must show ``king_counts_wgmma_kernel`` launches; each
+    task's wall time, ingest rate and device busy share are printed.
+11. The sliced entry from the CLI: phase 5's input with
+    ``--no-indexed_panels`` on the engine and under ``--use_mesh --device
+    cuda:0,cuda:0``; both must equal phase 5's rows, through
+    ``panel_counts_cuda`` and never the indexed entry.
 
 Every count of kernel launches is set to 0 just before a path runs and read
-just after; the AND + popcount yardstick may launch on no path.  Phase 3
+just after (phase 10's tasks run in processes of their own, so their
+launches are the kernel events of their traces); the AND + popcount
+yardstick may launch on no path.  Phase 3
 also profiles one more sweep for the device's busy share.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
@@ -60,6 +75,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -70,6 +86,7 @@ import numpy as np
 
 SITES = 100_000
 SEED = 20261016
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -106,8 +123,18 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
 def phase_env() -> str:
     import torch
 
+    from importlib import metadata
+
+    def version(dist: str) -> str:
+        try:
+            return metadata.version(dist)
+        except metadata.PackageNotFoundError:
+            return "absent"
+
     say(f"phase 0: python {sys.version.split()[0]}, torch {torch.__version__}, "
-        f"CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+        f"CUDA {torch.version.cuda}, " + ", ".join(
+            f"{d} {version(d)}" for d in ("numpy", "pyarrow", "gcsfs", "fsspec"))
+        + f", {torch.cuda.device_count()} device(s)")
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = f"{CUDA_HOME}/bin/nvcc" if CUDA_HOME else "nvcc"
@@ -618,7 +645,7 @@ def phase_cli_mesh(tmp: str, inp: str, split1: list) -> int:
     proc = subprocess.run(
         [sys.executable, "-c", _CHILD, "--input_uri", inp, "--output_uri",
          f"{tmp}/dist", "--distributed", "--device", "cuda:0,cuda:0,cuda:0,cuda:0"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300,
     )
     check(proc.returncode == 0,
@@ -682,6 +709,148 @@ def phase_king_popcount(card: str):
     return launches
 
 
+def _stage_seconds(log: str, message: str) -> float:
+    """The seconds a stage took, from the CLI's stage log line
+    ``<message>...<dots> (<seconds>s)``."""
+    m = re.search(re.escape(message) + r"[^\n]*?\.\.\.\.*\s*\(([0-9.]+)s\)", log)
+    check(m is not None, f"no '{message}' stage in the task's log")
+    return float(m.group(1))
+
+
+def trace_summary(path: str) -> tuple[int, float, float]:
+    """(launches of the wgmma kernel, device busy ms, traced span ms) of a
+    Chrome trace written by ``--profile_dir``; busy counts kernels, copies
+    and memsets on the device."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    check(bool(events), f"{path} holds no events")
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    launches = sum(1 for e in device
+                   if e["cat"] == "kernel" and "king_counts_wgmma_kernel" in e["name"])
+    busy_us = sum(float(e["dur"]) for e in device)
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    return launches, busy_us / 1e3, (end - start) / 1e3
+
+
+def phase_fan_out(tmp: str, card: str) -> int:
+    import contextlib
+    import io
+
+    from cuking_tpu_torch.cloud import batch_submit
+    from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
+    from cuking_tpu_torch.io.uri import Storage
+    from cuking_tpu_torch.ops import king_cuda
+    from cuking_tpu_torch.utils.synthetic import random_genotypes
+
+    n = 2048
+    g = random_genotypes(n, SITES, missing_rate=0.05, seed=SEED + 4, num_related_pairs=4)
+    entries = int(np.count_nonzero(g >= 0))
+    inp, out, traces = f"{tmp}/fan_in.parquet", f"{tmp}/fan_out", f"{tmp}/fan_traces"
+    t = time.perf_counter()
+    write_synthetic_input(Storage(), inp, g, num_partitions=4)
+    write_s = time.perf_counter() - t
+    del g
+    say(f"phase 10: wrote {n} x {SITES} ({entries:,} Parquet entries, 4 partitions) "
+        f"in {write_s:.1f} s")
+
+    rendered = io.StringIO()
+    with contextlib.redirect_stdout(rendered):
+        rc = batch_submit.main([
+            "--input-uri", inp, "--output-uri", out, "--kin-threshold", "0.0884",
+            "--split-factor", "2", "--docker-image", "cuking_tpu_torch:smoke",
+            f"--cuking-arg=--profile_dir={traces}", "--render-only",
+        ])
+    check(rc == 0, f"batch_submit --render-only exited {rc}")
+    job = json.loads(rendered.getvalue())
+    group = job["taskGroups"][0]
+    check(group["taskCount"] == 3, f"split 2 rendered {group['taskCount']} tasks")
+    instance = job["allocationPolicy"]["instances"][0]
+    check(instance["policy"]["accelerators"] == [{"type": "nvidia-h100-80gb", "count": 1}]
+          and instance["installGpuDrivers"] is True, "the job has no H100 accelerator block")
+    container = group["taskSpec"]["runnables"][0]["container"]
+    check(container["entrypoint"] == "/bin/sh" and container["commands"][0] == "-c",
+          "the task does not run under /bin/sh -c")
+    command = container["commands"][1]
+
+    # The tasks' python3 is this interpreter, as the image's is its own.
+    path = os.pathsep.join([os.path.dirname(sys.executable), os.environ.get("PATH", "")])
+    launches = 0
+    for k in range(group["taskCount"]):
+        t = time.perf_counter()
+        proc = subprocess.run(["/bin/sh", "-c", command], cwd=REPO,
+                              env=dict(os.environ, BATCH_TASK_INDEX=str(k), PATH=path),
+                              capture_output=True, text=True, timeout=600)
+        wall_s = time.perf_counter() - t
+        check(proc.returncode == 0,
+              f"task {k} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+        ingest_s = _stage_seconds(proc.stdout, "Processing Parquet tables")
+        sweep_s = _stage_seconds(proc.stdout, "Running KING kernel for")
+        staged_s = sum(map(float, re.findall(r"\(([0-9.]+)s\)\n", proc.stdout)))
+        task_launches, busy_ms, span_ms = trace_summary(
+            f"{traces}/trace-part-{k:05d}.json")
+        check(task_launches > 0, f"task {k}: no king_counts_wgmma_kernel in its trace")
+        launches += task_launches
+        say(f"phase 10: task {k}: exit 0, wall {wall_s:.3f} s, ingest {ingest_s:.3f} s "
+            f"({entries / ingest_s:,.0f} entries/s read), all logged stages "
+            f"{staged_s:.3f} s (the rest: start-up, CUDA context, profiler, trace "
+            f"export), sweep {sweep_s:.3f} s with "
+            f"{task_launches} kernel launch(es); traced sweep {span_ms:.1f} ms, device "
+            f"busy {busy_ms:.3f} ms = {100 * busy_ms / span_ms:.2f}% ({card})")
+
+    state = batch_submit.wait_for_completion(
+        "cuking-smoke", location="us-central1", output_uri=out,
+        runner=lambda cmd: json.dumps({"status": {"state": "SUCCEEDED"}}),
+        sleep=lambda s: None, log=lambda *_: None)
+    check(state == "SUCCEEDED" and os.path.isfile(f"{out}/_SUCCESS"),
+          "wait_for_completion wrote no _SUCCESS")
+    king_cuda.launches = 0
+    run_cli(inp, f"{tmp}/fan_split1", "--device", "cuda")
+    check(king_cuda.launches > 0, "the split-1 reference run launched no count kernel")
+    merged, split1 = _rows(out), _rows(f"{tmp}/fan_split1")
+    check(len(split1) >= 4, f"split 1 found {len(split1)} related pairs, expected >= 4")
+    check(merged == split1, "the merged fan-out partitions differ from the split-1 run")
+    say(f"phase 10: 3 Batch tasks merged == split-1 CLI ({len(split1)} rows, kin bits); "
+        f"_SUCCESS written; {launches} kernel launches in the tasks' traces")
+    return launches
+
+
+def phase_cli_sliced(tmp: str, inp: str, split1: list) -> int:
+    from cuking_tpu_torch.models import king as king_model
+    from cuking_tpu_torch.ops import king_cuda
+
+    sliced_calls = 0
+    sliced, indexed = king_model.panel_counts_cuda, king_model.panel_counts_cuda_indexed
+
+    def counting_sliced(*a, **kw):
+        nonlocal sliced_calls
+        sliced_calls += 1
+        return sliced(*a, **kw)
+
+    def no_indexed(*a, **kw):
+        raise RuntimeError("--no-indexed_panels reached the indexed entry")
+
+    king_model.panel_counts_cuda = counting_sliced
+    king_model.panel_counts_cuda_indexed = no_indexed
+    try:
+        king_cuda.launches = 0
+        run_cli(inp, f"{tmp}/sliced", "--device", "cuda", "--no-indexed_panels")
+        run_cli(inp, f"{tmp}/sliced_mesh", "--use_mesh", "--device", "cuda:0,cuda:0",
+                "--no-indexed_panels")
+        launches = king_cuda.launches
+    finally:
+        king_model.panel_counts_cuda, king_model.panel_counts_cuda_indexed = sliced, indexed
+    check(launches > 0 and sliced_calls == launches,
+          f"{launches} launches, {sliced_calls} through the sliced entry")
+    check(_rows(f"{tmp}/sliced") == split1, "--no-indexed_panels differs from phase 5")
+    check(_rows(f"{tmp}/sliced_mesh") == split1,
+          "--use_mesh --no-indexed_panels differs from phase 5")
+    say(f"phase 11: --no-indexed_panels on the engine and on a 2-position mesh == "
+        f"phase 5's {len(split1)} rows; {launches} kernel launches, all through the "
+        "sliced entry")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -709,7 +878,9 @@ def main() -> int:
         del engine_storage, engine_rs
         launches["rings_keep_all"] = phase_rings_keep_all(card, keep_storage, keep_rs)
         launches["cli_mesh"] = phase_cli_mesh(tmp, inp, split1)
-    launches["king"] = phase_king_popcount(card)
+        launches["king"] = phase_king_popcount(card)
+        launches["fan_out"] = phase_fan_out(tmp, card)
+        launches["cli_sliced"] = phase_cli_sliced(tmp, inp, split1)
     check(king_cuda.popc_launches == popc_launches,
           "the AND + popcount yardstick launched on the main path")
     say(json.dumps({"kernels": [{

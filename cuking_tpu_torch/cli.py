@@ -13,8 +13,11 @@ PyTorch count path.  Under ``--use_mesh`` it takes a comma-separated list of
 ring positions (default: every visible CUDA device).  ``--distributed``
 starts ``torch.distributed`` from the ``torchrun`` environment
 (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``): NCCL for CUDA
-positions, gloo for CPU ones.  The TPU package's ``--profile_dir``,
-``--indexed_panels`` and ``--tile_i/--tile_j`` are not ported.
+positions, gloo for CPU ones.  ``--profile_dir`` writes a ``torch.profiler``
+Chrome trace of the sweep, one file per output partition.  The TPU package's
+``--tile_i/--tile_j`` have no counterpart: they set the Pallas kernel's
+Mosaic tile edges, and the CUDA kernel's tiles are fixed by its ``wgmma``
+shape.
 
 Usage::
 
@@ -26,7 +29,9 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+import shutil
 import sys
 from datetime import timedelta
 
@@ -143,6 +148,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip_existing", action="store_true", help=(
         "Exit successfully without recomputing when this shard's output "
         "partition already exists (idempotent fan-out restarts)"))
+    p.add_argument("--profile_dir", default="", help=(
+        "If set, write a torch.profiler Chrome trace of the sweep (CPU, and "
+        "CUDA on a CUDA device) into this directory (local or gs://) as "
+        "trace-part-NNNNN.json, named after this run's output partition so "
+        "that the tasks of a fan-out can share one directory (open it in "
+        "Perfetto or chrome://tracing)"))
+    p.add_argument("--indexed_panels", action=argparse.BooleanOptionalAction,
+                   default=None, help=(
+        "cuda kernel panel addressing: row offsets straight into the "
+        "device-resident planes (no per-step panel copies) vs sliced "
+        "panels. Default: the engine's default (KingConfig)"))
     p.add_argument("--quiet", action="store_true", help="Suppress stage logs")
     return p
 
@@ -320,6 +336,36 @@ def _check_mesh_fit(args, mesh: RingMesh, metadata, layout, submatrix, panel) ->
     )
 
 
+@contextlib.contextmanager
+def _profiling(args, storage: Storage, devices: list[str], shard_index: int, logger):
+    """With ``--profile_dir``, profiles the body and writes its Chrome trace
+    through ``storage`` (so a gs:// directory works); otherwise a no-op."""
+    if not args.profile_dir:
+        yield
+        return
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(devices[0]).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    # Named after the output partition: part-00003.snappy.parquet →
+    # trace-part-00003.json.
+    stem = partition_name(shard_index).split(".")[0]
+    uri = storage.join(args.profile_dir, f"trace-{stem}.json")
+    # export_chrome_trace writes a local file only.
+    with tempfile.TemporaryDirectory() as tmp:
+        local = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(local)
+        with open(local, "rb") as src, storage.open_write(uri) as dst:
+            shutil.copyfileobj(src, dst)
+    logger.print(f"Wrote profiler trace {uri}.")
+
+
 def run(args: argparse.Namespace) -> None:
     # Flag validation, mirroring cuking.cu:436-465.
     if not args.input_uri:
@@ -388,6 +434,9 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
     # work doesn't dominate.
     shard_n = max(submatrix.num_rows, submatrix.num_cols, 1)
     panel = min(args.panel, max(128, ceil_pow2(shard_n)))
+    config_kw = {}
+    if args.indexed_panels is not None:
+        config_kw["indexed_panels"] = args.indexed_panels
     config = KingConfig(
         kin_threshold=args.kin_threshold,
         max_results=args.max_results,
@@ -396,6 +445,7 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
         result_capacity=args.result_capacity,
         device=devices[0],
         verbose=not args.quiet,
+        **config_kw,
     )
     resolve_kernel_name(config)  # --kernel cuda on a CPU device fails here
 
@@ -437,13 +487,14 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
     )
     logger.end("ingest")
 
-    if mesh is not None:
-        logger.begin("Running mesh ring sweep...")
-        results = _run_mesh_sweep(args, panel_storage, config, mesh, logger)
-        logger.end("king_kernel")
-    else:
-        engine = KingEngine(panel_storage, config, logger=logger)
-        results = engine.run()
+    with _profiling(args, storage, devices, shard_index, logger):
+        if mesh is not None:
+            logger.begin("Running mesh ring sweep...")
+            results = _run_mesh_sweep(args, panel_storage, config, mesh, logger)
+            logger.end("king_kernel")
+        else:
+            engine = KingEngine(panel_storage, config, logger=logger)
+            results = engine.run()
 
     logger.begin(f"Writing {len(results)} results...")
     uri = write_results(

@@ -18,8 +18,11 @@ A CPU tensor takes the plain version, :func:`panel_counts_five_block`: the
 same five int8 products as the kernel, through ``torch._int_mm``.  A CUDA
 tensor launches the kernel or raises; nothing falls back.  The kernels are
 built with ``nvcc`` at first use, from the sources in ``csrc/``, into
-``_build/`` (rebuilt when any file under ``csrc/`` is newer than the
-library), and bound through a plain C interface with ctypes.  ``launches``
+``_build/``, and bound through a plain C interface with ctypes.  The library
+is current while the SHA-256 of ``csrc/`` and the nvcc flags, stored beside
+it at build time, still matches: a digest and not a modification time, so
+that a library prebuilt into a container image stays current after ``COPY``
+gives the sources newer times (the runtime image has no ``nvcc``).  ``launches``
 counts launches of the wgmma kernel.
 
 :func:`panel_counts_popc_indexed` runs the same contract through the first
@@ -30,6 +33,7 @@ launches.
 
 from __future__ import annotations
 
+import hashlib
 import os
 import threading
 
@@ -48,6 +52,7 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCE = os.path.join(CSRC, "king_counts.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libking_counts.so")
+DIGEST_PATH = os.path.join(BUILD_DIR, "libking_counts.sha256")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -64,23 +69,39 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _newest_source_mtime() -> float:
-    """The newest modification time of any file under ``csrc/``, so that a
-    changed header rebuilds the library as a changed ``.cu`` does."""
-    newest = 0.0
-    for root, _, files in os.walk(CSRC):
-        for f in files:
-            newest = max(newest, os.path.getmtime(os.path.join(root, f)))
-    return newest
+def source_digest() -> str:
+    """SHA-256 over every file under ``csrc/`` (relative path and bytes, in
+    sorted order) and the nvcc flags: what the library was built from."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for root, dirs, files in os.walk(CSRC):
+        dirs.sort()
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            h.update(os.path.relpath(path, CSRC).encode() + b"\0")
+            with open(path, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def library_is_current() -> bool:
+    """True when the library exists and was built from the sources and
+    flags it would be built from now."""
+    try:
+        with open(DIGEST_PATH) as f:
+            built_from = f.read().strip()
+    except FileNotFoundError:
+        return False
+    return os.path.exists(LIB_PATH) and built_from == source_digest()
 
 
 def _compile_if_stale() -> str:
-    if os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH) >= _newest_source_mtime():
+    if library_is_current():
         return ""
     import subprocess
 
     from torch.utils.cpp_extension import CUDA_HOME
 
+    digest = source_digest()
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
     os.makedirs(BUILD_DIR, exist_ok=True)
     # Build under a private name and rename into place, so a concurrent
@@ -97,12 +118,17 @@ def _compile_if_stale() -> str:
             f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
         )
     os.replace(tmp, LIB_PATH)
+    # The digest goes in after the library, so a reader that sees it current
+    # finds the new library in place.
+    with open(tmp, "w") as f:
+        f.write(digest + "\n")
+    os.replace(tmp, DIGEST_PATH)
     return proc.stderr
 
 
 def build() -> str:
-    """Compiles the kernel library if it is missing or older than a file
-    under ``csrc/``, and loads it.  Returns the compiler's report
+    """Compiles the kernel library if it is missing or was built from other
+    sources or flags (:func:`library_is_current`), and loads it.  Returns the compiler's report
     (``ptxas -v``), or '' when the library was current."""
     global _lib
     with _lock:

@@ -8,6 +8,11 @@ runs on a GPU machine without the JAX package's dependencies::
     python -m pytest tests/test_torch_gpu.py -m gpu
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -156,3 +161,56 @@ def test_ring_on_one_card_equals_the_engine(cuda_device, positions, sub_panel):
     for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
         assert np.array_equal(getattr(got, f), getattr(ref, f)), f
     assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
+
+
+@pytest.mark.gpu
+def test_rendered_batch_tasks_run_on_the_card(cuda_device, tmp_path):
+    """The Batch job for split 2, its three task commands run under
+    ``/bin/sh -c`` from the repository root as the container runs them:
+    each launches the kernel (its trace shows it), and the merged partitions
+    equal the cuda engine's results."""
+    import contextlib
+    import io
+
+    from cuking_tpu_torch.cloud import batch_submit
+    from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
+    from cuking_tpu_torch.io.uri import Storage
+    from cuking_tpu_torch.io.writer import read_results_table
+
+    g = random_genotypes(300, 3_000, missing_rate=0.05, seed=9, num_related_pairs=4)
+    inp, out, traces = (str(tmp_path / d) for d in ("in.parquet", "out", "traces"))
+    metadata = write_synthetic_input(Storage(), inp, g)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert batch_submit.main([
+            "--input-uri", inp, "--output-uri", out, "--kin-threshold=-2.0",
+            "--split-factor", "2", "--docker-image", "img", "--render-only",
+            f"--cuking-arg=--profile_dir={traces}", "--cuking-arg=--quiet"]) == 0
+    command = json.loads(buf.getvalue())["taskGroups"][0]["taskSpec"]["runnables"][0][
+        "container"]["commands"][1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join([os.path.dirname(sys.executable), os.environ.get("PATH", "")])
+    for k in range(3):
+        proc = subprocess.run(["/bin/sh", "-c", command], cwd=repo,
+                              env=dict(os.environ, BATCH_TASK_INDEX=str(k), PATH=path),
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        with open(os.path.join(traces, f"trace-part-{k:05d}.json")) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("cat") == "kernel" and "king_counts_wgmma_kernel" in e["name"]
+                   for e in events), k
+
+    table = read_results_table(Storage(), out)
+    index = {s: k for k, s in enumerate(metadata.samples)}
+    got = sorted(zip([index[s] for s in table.column("i").to_pylist()],
+                     [index[s] for s in table.column("j").to_pylist()],
+                     np.asarray(table.column("kin").to_numpy(), np.float32)
+                     .view(np.uint32).tolist(),
+                     *(table.column(c).to_pylist() for c in ("ibs0", "ibs1", "ibs2"))))
+    ref = KingEngine.from_genotypes(
+        g, KingConfig(kernel="cuda", device="cuda", panel=128, kin_threshold=-2.0)).run()
+    exp = sorted(zip(ref.i_idx.tolist(), ref.j_idx.tolist(),
+                     ref.kin.view(np.uint32).tolist(), ref.ibs0.tolist(),
+                     ref.ibs1.tolist(), ref.ibs2.tolist()))
+    assert len(got) == len(exp) > 0
+    assert got == exp

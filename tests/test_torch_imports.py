@@ -1,5 +1,5 @@
 """The port stands alone: importing any cuking_tpu_torch module loads neither
-jax, cuking_tpu, triton nor pyarrow, and chip_smoke.py refuses to run
+jax, cuking_tpu, triton, pyarrow nor hail, and chip_smoke.py refuses to run
 without a CUDA device."""
 
 import os
@@ -24,7 +24,7 @@ for name in names:
 import chip_smoke
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "cuking_tpu", "triton",
-                                    "pyarrow"))
+                                    "pyarrow", "hail"))
 print(len(names), bad)
 """
 
