@@ -56,11 +56,13 @@ Phases (any failure exits nonzero):
     ``wait_for_completion`` on a stub that reports ``SUCCEEDED`` (it writes
     ``_SUCCESS``).  The merged partitions must equal a split-1 CLI run, and
     each task's trace must show ``king_counts_wgmma_kernel`` launches; each
-    task's wall time, ingest rate and device busy share are printed.
-11. The sliced entry from the CLI: phase 5's input with
-    ``--no-indexed_panels`` on the engine and under ``--use_mesh --device
-    cuda:0,cuda:0``; both must equal phase 5's rows, through
-    ``panel_counts_cuda`` and never the indexed entry.
+    task's wall time, ingest rate and device busy share are printed.  The
+    same job rendered without ``--profile_dir`` runs each task once more,
+    just before its traced run, and must merge to the same rows: the
+    difference in wall time is what tracing costs.  A bare process that
+    imports the CLI and makes the CUDA context is timed once, as the part of
+    a task's wall time that is start-up.  These are smoke-size tasks (one
+    kernel launch each), not a deployment's shard.
 
 Every count of kernel launches is set to 0 just before a path runs and read
 just after (phase 10's tasks run in processes of their own, so their
@@ -754,15 +756,18 @@ def phase_fan_out(tmp: str, card: str) -> int:
     say(f"phase 10: wrote {n} x {SITES} ({entries:,} Parquet entries, 4 partitions) "
         f"in {write_s:.1f} s")
 
-    rendered = io.StringIO()
-    with contextlib.redirect_stdout(rendered):
-        rc = batch_submit.main([
-            "--input-uri", inp, "--output-uri", out, "--kin-threshold", "0.0884",
-            "--split-factor", "2", "--docker-image", "cuking_tpu_torch:smoke",
-            f"--cuking-arg=--profile_dir={traces}", "--render-only",
-        ])
-    check(rc == 0, f"batch_submit --render-only exited {rc}")
-    job = json.loads(rendered.getvalue())
+    def render(output_uri: str, *extra: str) -> dict:
+        rendered = io.StringIO()
+        with contextlib.redirect_stdout(rendered):
+            rc = batch_submit.main([
+                "--input-uri", inp, "--output-uri", output_uri,
+                "--kin-threshold", "0.0884", "--split-factor", "2",
+                "--docker-image", "cuking_tpu_torch:smoke", "--render-only", *extra,
+            ])
+        check(rc == 0, f"batch_submit --render-only exited {rc}")
+        return json.loads(rendered.getvalue())
+
+    job = render(out, f"--cuking-arg=--profile_dir={traces}")
     group = job["taskGroups"][0]
     check(group["taskCount"] == 3, f"split 2 rendered {group['taskCount']} tasks")
     instance = job["allocationPolicy"]["instances"][0]
@@ -772,29 +777,52 @@ def phase_fan_out(tmp: str, card: str) -> int:
     check(container["entrypoint"] == "/bin/sh" and container["commands"][0] == "-c",
           "the task does not run under /bin/sh -c")
     command = container["commands"][1]
+    plain_out = f"{tmp}/fan_out_plain"
+    plain_command = render(plain_out)["taskGroups"][0]["taskSpec"]["runnables"][0][
+        "container"]["commands"][1]
 
     # The tasks' python3 is this interpreter, as the image's is its own.
     path = os.pathsep.join([os.path.dirname(sys.executable), os.environ.get("PATH", "")])
-    launches = 0
-    for k in range(group["taskCount"]):
+
+    def run_task(cmd: str, k: int) -> tuple[float, str]:
         t = time.perf_counter()
-        proc = subprocess.run(["/bin/sh", "-c", command], cwd=REPO,
+        proc = subprocess.run(["/bin/sh", "-c", cmd], cwd=REPO,
                               env=dict(os.environ, BATCH_TASK_INDEX=str(k), PATH=path),
                               capture_output=True, text=True, timeout=600)
         wall_s = time.perf_counter() - t
         check(proc.returncode == 0,
               f"task {k} exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-        ingest_s = _stage_seconds(proc.stdout, "Processing Parquet tables")
-        sweep_s = _stage_seconds(proc.stdout, "Running KING kernel for")
-        staged_s = sum(map(float, re.findall(r"\(([0-9.]+)s\)\n", proc.stdout)))
+        return wall_s, proc.stdout
+
+    def stages(log: str) -> str:
+        ingest_s = _stage_seconds(log, "Processing Parquet tables")
+        staged_s = sum(map(float, re.findall(r"\(([0-9.]+)s\)\n", log)))
+        return (f"ingest {ingest_s:.3f} s ({entries / ingest_s:,.0f} entries/s read), "
+                f"all logged stages {staged_s:.3f} s, sweep "
+                f"{_stage_seconds(log, 'Running KING kernel for'):.3f} s")
+
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import torch, cuking_tpu_torch.cli; "
+         "torch.zeros(1, device='cuda').sum().item()"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    startup_s = time.perf_counter() - t
+    check(proc.returncode == 0, f"the start-up probe exited {proc.returncode}:\n{proc.stderr}")
+    say(f"phase 10: start-up (python3, import the CLI, CUDA context, exit) "
+        f"{startup_s:.3f} s ({card})")
+
+    launches = 0
+    for k in range(group["taskCount"]):
+        plain_s, log = run_task(plain_command, k)
+        say(f"phase 10: task {k} without --profile_dir: exit 0, wall {plain_s:.3f} s, "
+            f"{stages(log)} ({card})")
+        wall_s, log = run_task(command, k)
         task_launches, busy_ms, span_ms = trace_summary(
             f"{traces}/trace-part-{k:05d}.json")
         check(task_launches > 0, f"task {k}: no king_counts_wgmma_kernel in its trace")
         launches += task_launches
-        say(f"phase 10: task {k}: exit 0, wall {wall_s:.3f} s, ingest {ingest_s:.3f} s "
-            f"({entries / ingest_s:,.0f} entries/s read), all logged stages "
-            f"{staged_s:.3f} s (the rest: start-up, CUDA context, profiler, trace "
-            f"export), sweep {sweep_s:.3f} s with "
+        say(f"phase 10: task {k} with --profile_dir: exit 0, wall {wall_s:.3f} s "
+            f"({wall_s - plain_s:+.3f} s against the untraced run), {stages(log)} with "
             f"{task_launches} kernel launch(es); traced sweep {span_ms:.1f} ms, device "
             f"busy {busy_ms:.3f} ms = {100 * busy_ms / span_ms:.2f}% ({card})")
 
@@ -810,44 +838,11 @@ def phase_fan_out(tmp: str, card: str) -> int:
     merged, split1 = _rows(out), _rows(f"{tmp}/fan_split1")
     check(len(split1) >= 4, f"split 1 found {len(split1)} related pairs, expected >= 4")
     check(merged == split1, "the merged fan-out partitions differ from the split-1 run")
-    say(f"phase 10: 3 Batch tasks merged == split-1 CLI ({len(split1)} rows, kin bits); "
-        f"_SUCCESS written; {launches} kernel launches in the tasks' traces")
-    return launches
-
-
-def phase_cli_sliced(tmp: str, inp: str, split1: list) -> int:
-    from cuking_tpu_torch.models import king as king_model
-    from cuking_tpu_torch.ops import king_cuda
-
-    sliced_calls = 0
-    sliced, indexed = king_model.panel_counts_cuda, king_model.panel_counts_cuda_indexed
-
-    def counting_sliced(*a, **kw):
-        nonlocal sliced_calls
-        sliced_calls += 1
-        return sliced(*a, **kw)
-
-    def no_indexed(*a, **kw):
-        raise RuntimeError("--no-indexed_panels reached the indexed entry")
-
-    king_model.panel_counts_cuda = counting_sliced
-    king_model.panel_counts_cuda_indexed = no_indexed
-    try:
-        king_cuda.launches = 0
-        run_cli(inp, f"{tmp}/sliced", "--device", "cuda", "--no-indexed_panels")
-        run_cli(inp, f"{tmp}/sliced_mesh", "--use_mesh", "--device", "cuda:0,cuda:0",
-                "--no-indexed_panels")
-        launches = king_cuda.launches
-    finally:
-        king_model.panel_counts_cuda, king_model.panel_counts_cuda_indexed = sliced, indexed
-    check(launches > 0 and sliced_calls == launches,
-          f"{launches} launches, {sliced_calls} through the sliced entry")
-    check(_rows(f"{tmp}/sliced") == split1, "--no-indexed_panels differs from phase 5")
-    check(_rows(f"{tmp}/sliced_mesh") == split1,
-          "--use_mesh --no-indexed_panels differs from phase 5")
-    say(f"phase 11: --no-indexed_panels on the engine and on a 2-position mesh == "
-        f"phase 5's {len(split1)} rows; {launches} kernel launches, all through the "
-        "sliced entry")
+    check(_rows(plain_out) == split1,
+          "the untraced fan-out partitions differ from the split-1 run")
+    say(f"phase 10: 3 Batch tasks merged == split-1 CLI ({len(split1)} rows, kin bits), "
+        f"traced and untraced; _SUCCESS written; {launches} kernel launches in the "
+        "tasks' traces")
     return launches
 
 
@@ -880,7 +875,6 @@ def main() -> int:
         launches["cli_mesh"] = phase_cli_mesh(tmp, inp, split1)
         launches["king"] = phase_king_popcount(card)
         launches["fan_out"] = phase_fan_out(tmp, card)
-        launches["cli_sliced"] = phase_cli_sliced(tmp, inp, split1)
     check(king_cuda.popc_launches == popc_launches,
           "the AND + popcount yardstick launched on the main path")
     say(json.dumps({"kernels": [{

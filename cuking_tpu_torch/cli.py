@@ -15,9 +15,12 @@ starts ``torch.distributed`` from the ``torchrun`` environment
 (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``): NCCL for CUDA
 positions, gloo for CPU ones.  ``--profile_dir`` writes a ``torch.profiler``
 Chrome trace of the sweep, one file per output partition.  The TPU package's
-``--tile_i/--tile_j`` have no counterpart: they set the Pallas kernel's
-Mosaic tile edges, and the CUDA kernel's tiles are fixed by its ``wgmma``
-shape.
+``--tile_i/--tile_j`` and ``--[no-]indexed_panels`` have no counterpart and
+are rejected: the first set the Pallas kernel's Mosaic tile edges, and the
+CUDA kernel's tiles are fixed by its ``wgmma`` shape; the second chooses
+between two Pallas entries, while the CUDA kernel reads every panel in
+place through row offsets, so its sliced form would only add two panel
+copies per step in front of the same kernel.
 
 Usage::
 
@@ -154,11 +157,6 @@ def build_parser() -> argparse.ArgumentParser:
         "trace-part-NNNNN.json, named after this run's output partition so "
         "that the tasks of a fan-out can share one directory (open it in "
         "Perfetto or chrome://tracing)"))
-    p.add_argument("--indexed_panels", action=argparse.BooleanOptionalAction,
-                   default=None, help=(
-        "cuda kernel panel addressing: row offsets straight into the "
-        "device-resident planes (no per-step panel copies) vs sliced "
-        "panels. Default: the engine's default (KingConfig)"))
     p.add_argument("--quiet", action="store_true", help="Suppress stage logs")
     return p
 
@@ -434,9 +432,6 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
     # work doesn't dominate.
     shard_n = max(submatrix.num_rows, submatrix.num_cols, 1)
     panel = min(args.panel, max(128, ceil_pow2(shard_n)))
-    config_kw = {}
-    if args.indexed_panels is not None:
-        config_kw["indexed_panels"] = args.indexed_panels
     config = KingConfig(
         kin_threshold=args.kin_threshold,
         max_results=args.max_results,
@@ -445,7 +440,6 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
         result_capacity=args.result_capacity,
         device=devices[0],
         verbose=not args.quiet,
-        **config_kw,
     )
     resolve_kernel_name(config)  # --kernel cuda on a CPU device fails here
 

@@ -7,9 +7,8 @@ packed planes for one shard, in PyTorch.
   ``valid & i < j & kin > threshold`` and the compaction.
 * The planes are uploaded once, as an int32 view of the uint32 words, and
   the count kernel reads each panel in place through row offsets (the
-  indexed entry; ``indexed_panels=False`` copies the panels out for the
-  sliced entry instead); a diagonal panel pair sets ``tri`` so the CUDA
-  kernel skips tiles wholly below the diagonal.
+  indexed entry); a diagonal panel pair sets ``tri`` so the CUDA kernel skips
+  tiles wholly below the diagonal.
 * Sample storage follows the reference's shard layout: the Submatrix i-range
   stored before the j-range (cuking.cu:171-175), each padded to a panel
   multiple with all-missing samples.
@@ -71,10 +70,6 @@ class KingConfig:
     site_chunk_words: int = 128     # words per site chunk, matmul kernel only
     popcount_row_block: int = 8     # i-rows per popcount block
     result_capacity: int = 0        # initial result-buffer slots (0 = auto)
-    # cuda kernel only: read each panel in place through row offsets (the
-    # indexed entry) instead of copying it out and calling the sliced entry.
-    # Off is the sliced entry's path, kept as the TPU package's A/B switch.
-    indexed_panels: bool = True
     device: str = "cuda"
     verbose: bool = False
 
@@ -120,11 +115,8 @@ def resolve_kernel(config: KingConfig) -> Callable:
 
 def resolve_indexed_kernel(config: KingConfig) -> Callable | None:
     """The indexed entry (row offsets into full storage, no panel copies)
-    when the CUDA kernel is selected and ``indexed_panels`` is on; None
-    otherwise, and then callers slice their panels for the sliced entry."""
-    if not config.indexed_panels or resolve_kernel_name(config) != "cuda":
-        return None
-    return panel_counts_cuda_indexed
+    when the CUDA kernel is selected; None otherwise."""
+    return panel_counts_cuda_indexed if resolve_kernel_name(config) == "cuda" else None
 
 
 @dataclass
@@ -309,11 +301,8 @@ class KingEngine:
         panel = self.config.panel
         if self._indexed_kernel is not None:
             return self._indexed_kernel(planes, i_off, j_off, tri, panel)
-        # The sliced entry takes contiguous [2, panel, W] copies.
         return self._kernel(
-            planes[:, i_off : i_off + panel].contiguous(),
-            planes[:, j_off : j_off + panel].contiguous(),
-            tri,
+            planes[:, i_off : i_off + panel], planes[:, j_off : j_off + panel], tri
         )
 
     def run(self) -> ResultSet:

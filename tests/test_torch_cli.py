@@ -126,7 +126,8 @@ def test_cli_skip_existing(tmp_path, capsys):
     assert "already exists; skipping" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", ["--tile_i=256", "--kernel=pallas"])
+@pytest.mark.parametrize("flag", ["--tile_i=256", "--indexed_panels",
+                                  "--no-indexed_panels", "--kernel=pallas"])
 def test_unported_flags_are_rejected(flag):
     with pytest.raises(SystemExit) as e:
         cli.build_parser().parse_args(["--input_uri", "x", flag])
@@ -165,49 +166,13 @@ def test_profile_dir_writes_a_trace_per_partition(tmp_path, expected, mesh):
     assert read_output_rows(out) == exp
 
 
-@pytest.mark.parametrize("flag,indexed", [
-    ("--indexed_panels", True), ("--no-indexed_panels", False), (None, True),
-])
-def test_indexed_panels_flag_matches_jax_cli(tmp_path, monkeypatch, flag, indexed):
-    seen = []
-    engine_init = cli.KingEngine.__init__
-
-    def recording_init(self, storage, config=None, logger=None):
-        seen.append(config.indexed_panels)
-        engine_init(self, storage, config, logger)
-
-    monkeypatch.setattr(cli.KingEngine, "__init__", recording_init)
-    common = ["--input_uri", GOLDEN_INPUT, "--kin_threshold", "-2.0", "--quiet",
-              *([flag] if flag else [])]
-    assert cli.main([*common, "--output_uri", str(tmp_path / "port"),
-                     "--device", "cpu"]) == 0
-    assert seen == [indexed]
-    assert jax_cli.main([*common, "--output_uri", str(tmp_path / "jax"),
-                         "--kernel", "matmul"]) == 0
-    port, ref = read_output_rows(str(tmp_path / "port")), read_output_rows(str(tmp_path / "jax"))
-    assert len(ref) == 190
-    assert port == ref
-
-
-def test_indexed_panels_off_selects_the_sliced_entry():
-    """With indexed_panels off the cuda kernel has no indexed entry (no card
-    needed to resolve it), and the engine's sliced path hands the sliced
-    entry contiguous panels: on CPU tensors it checks them and runs its
-    plain version, which must give the indexed default's results."""
-    from cuking_tpu_torch.models.king import KingConfig, KingEngine, resolve_indexed_kernel
-    from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
+def test_cuda_kernel_reads_panels_through_the_indexed_entry():
+    """The cuda kernel always takes the indexed entry (no card needed to
+    resolve it); the plain kernels slice their panels."""
+    from cuking_tpu_torch.models.king import KingConfig, resolve_indexed_kernel
+    from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda_indexed
 
     assert resolve_indexed_kernel(KingConfig(device="cuda")) is panel_counts_cuda_indexed
-    assert resolve_indexed_kernel(KingConfig(indexed_panels=False, device="cuda")) is None
+    assert resolve_indexed_kernel(KingConfig(kernel="cuda", device="cuda")) is panel_counts_cuda_indexed
     assert resolve_indexed_kernel(KingConfig(device="cpu")) is None
-    g = random_genotypes(150, 1000, missing_rate=0.05, seed=17, num_related_pairs=3)
-    cfg = KingConfig(device="cpu", panel=64, kin_threshold=-2.0)
-    sliced = KingEngine.from_genotypes(g, cfg)
-    sliced._kernel, sliced._indexed_kernel = panel_counts_cuda, None
-    indexed = KingEngine.from_genotypes(g, cfg)
-    indexed._indexed_kernel = panel_counts_cuda_indexed
-    got, ref = sliced.run(), indexed.run()
-    assert len(got) == len(ref) == 150 * 149 // 2
-    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
-        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
-    assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
+    assert resolve_indexed_kernel(KingConfig(kernel="popcount", device="cuda")) is None

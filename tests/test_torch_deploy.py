@@ -30,9 +30,24 @@ def _dockerfile_lines() -> list[str]:
 def test_every_copy_source_exists():
     copies = [ln.split()[1:-1] for ln in _dockerfile_lines() if ln.startswith("COPY ")]
     local = [src for args in copies if not args[0].startswith("--from=") for src in args]
-    assert "cuking_tpu_torch" in local and "native/packer.cpp" in local
+    assert "cuking_tpu_torch" in local and "native" in local
     for src in local:
         assert os.path.exists(os.path.join(REPO, src)), src
+
+
+def test_runtime_stage_fails_the_build_unless_both_libraries_load():
+    """The runtime stage has neither g++ nor nvcc.  The packer's source and
+    library both come from the build stage, so its modification-time rule
+    finds the library current, and a RUN after the copies asserts that the
+    packer loads and that the kernel library is current by its digest."""
+    lines = _dockerfile_lines()
+    runtime = lines[[k for k, ln in enumerate(lines) if ln.startswith("FROM ")][1]:]
+    copies = {ln.split()[-1]: ln for ln in runtime if ln.startswith("COPY ")}
+    assert copies["/app/native/packer.cpp"].startswith("COPY --from=build ")
+    assert copies["/app/native/build/"].startswith("COPY --from=build ")
+    (check,) = [k for k, ln in enumerate(runtime) if "packer.available()" in ln]
+    assert "king_cuda.library_is_current()" in runtime[check]
+    assert check > max(k for k, ln in enumerate(runtime) if ln.startswith(("COPY ", "ENV ")))
 
 
 def test_image_runs_the_port_and_installs_no_jax():
