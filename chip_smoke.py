@@ -25,11 +25,23 @@ Phases (any failure exits nonzero):
    9-block indicators (``library_ms``), the two ``torch._int_mm`` calls of
    the five products, the kernel's own operations (``library_five_ms``),
    the plain version, and the bound computed from the shapes.
+2b. The emit kernel against its plain version on the card, on the same
+   counters, fields and count: the count kernel's counters at 1024 x 1024
+   (off the diagonal; a ``tri`` diagonal pair; limits inside the block),
+   random counters with zero-het rows (NaN, -inf kin) and three pairs whose
+   kin equals the threshold, ``strict`` and ``sym``, and an overflow past
+   ``capacity`` whose count stays exact.  Then CUDA-event times at the
+   engine's shape, hit-free and keep-all, beside the plain version and the
+   bound (the counters read once, the hits written once).
 3. The main path: ``KingEngine`` at 32,768 samples x 100,000 sites with 64
    planted duplicate pairs; exactly those must come out, with kin == 0.5.
-   Kernel launch counts are read from this run.
-4. Keep-all parity at 4,096 x 100,000 (8,386,560 hits, which grows the
-   result buffer): the cuda and matmul engines give identical results.
+   Kernel launch counts are read from this run.  One more sweep's step loop
+   runs under ``torch.cuda.set_sync_debug_mode("error")``: a step that
+   waits for the device fails it.
+4. Keep-all parity at 4,096 x 100,000 (8,386,560 hits, past the default
+   2^20 slots, so the sweep re-runs at 2^23): the cuda engine, the matmul
+   engine and the cuda engine with the plain emit step give identical
+   results.
 5. The CLI end to end on a synthetic Parquet input (pyarrow is required):
    split 1, the three shards of split 2 merged, and the CPU plain path, all
    equal.
@@ -64,10 +76,11 @@ Phases (any failure exits nonzero):
     a task's wall time that is start-up.  These are smoke-size tasks (one
     kernel launch each), not a deployment's shard.
 
-Every count of kernel launches is set to 0 just before a path runs and read
-just after (phase 10's tasks run in processes of their own, so their
-launches are the kernel events of their traces); the AND + popcount
-yardstick may launch on no path.  Phase 3
+Every count of kernel launches (``king_cuda.launches`` for the count
+kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
+before a path runs and read just after (phase 10's tasks run in processes
+of their own, so their launches are the kernel events of their traces); the
+AND + popcount yardstick may launch on no path.  Phase 3
 also profiles one more sweep for the device's busy share.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
@@ -100,6 +113,32 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
+# The kernels of the main path, by the name of their launch counters.
+KERNELS = ("king_counts", "king_emit")
+
+
+def reset_launches() -> None:
+    from cuking_tpu_torch.ops import king_cuda, king_emit
+
+    king_cuda.launches = 0
+    king_emit.emit_launches = 0
+
+
+def read_launches(what: str, path_kernels=KERNELS) -> dict:
+    """Launches of each kernel since :func:`reset_launches`; fails when a
+    kernel of the path (``path_kernels``) did not launch."""
+    from cuking_tpu_torch.ops import king_cuda, king_emit
+
+    counts = {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches}
+    for name in path_kernels:
+        check(counts[name] > 0, f"{what} launched no {name} kernel")
+    return counts
+
+
+def add_launches(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in KERNELS}
+
+
 def defined_sites(planes: np.ndarray, row: int) -> int:
     """Defined (not (1,1)) sites of one stored sample."""
     d = ~(planes[0, row] & planes[1, row])
@@ -120,6 +159,30 @@ def cuda_ms(fn, iters: int, warmup: int) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def queued_ms(fn, iters: int, warmup: int) -> tuple[float, float]:
+    """(device ms per launch, host ms per launch) of launches that the host
+    queues behind a spin kernel of ~10 ms, so that the device runs them back
+    to back and the CUDA events time the kernels, not the host's launch
+    rate; valid while the host's time for all launches stays under the
+    spin."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t) / iters
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters, host_ms
 
 
 def phase_env() -> str:
@@ -160,8 +223,8 @@ def phase_build() -> None:
     kernel = "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("wgmma", "popc") if f"king_counts_{k}_kernel" in line),
-                          "?")
+            kernel = next((k for k in ("counts_wgmma", "counts_popc", "emit")
+                           if f"king_{k}_kernel" in line), "?")
         elif "Used" in line or "spill" in line:
             say(f"  ptxas, {kernel} kernel: {line.split(':', 1)[-1].strip()}")
 
@@ -330,11 +393,140 @@ def phase_kernel(card: str) -> dict:
     return {"max_abs_err": max_err, **t100k, "at_1m_sites": t1m}
 
 
+PEAK_FP32_OPS = 67e12  # non-tensor float32 (NVIDIA's H100 SXM data sheet)
+
+
+def emit_bound(pairs: int, hits: int) -> tuple[float, str]:
+    """The least time (ms) one emit launch could take, and what bounds it:
+    the six int32 counters of every pair read once and 24 B written per
+    hit, against ~10 operations per pair (the kin expression and the mask)
+    at the card's non-tensor float32 rate."""
+    t_bytes = (24 * pairs + 24 * hits) / PEAK_BYTES
+    t_ops = 10 * pairs / PEAK_FP32_OPS
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def _sorted_rows(rows: np.ndarray) -> np.ndarray:
+    return rows[:, np.lexsort(rows[::-1])]
+
+
+def compare_emits(kernel_hits, plain_hits, what: str) -> int:
+    """Holds the kernel's HitBuffer against the plain version's (which had
+    room for every hit): the same exact count, and the same rows; past the
+    kernel's capacity, each row it kept is one of the plain version's.
+    Returns the largest difference of a count or field (0 when they agree)."""
+    total, ref_total = int(kernel_hits.count), int(plain_hits.count)
+    check(total == ref_total, f"{what}: the kernel counted {total} hits, the plain "
+                              f"version {ref_total}")
+    got, ref = kernel_hits.rows(total), _sorted_rows(plain_hits.rows(ref_total))
+    if total <= kernel_hits.capacity:
+        got = _sorted_rows(got)
+    else:
+        check(got.shape[1] == kernel_hits.capacity, f"{what}: kept {got.shape[1]} rows")
+        keys = ref[0].astype(np.int64) << 32 | ref[1].astype(np.int64)
+        at = np.searchsorted(keys, got[0].astype(np.int64) << 32 | got[1].astype(np.int64))
+        check(bool((at < len(keys)).all()), f"{what}: a kept row is no hit")
+        ref = ref[:, at]
+    err = int(np.abs(got.astype(np.int64) - ref.astype(np.int64)).max(initial=0))
+    check(err == 0, f"{what}: a field differs from the plain version by {err}")
+    return err
+
+
+def phase_emit(card: str) -> dict:
+    import itertools
+
+    import torch
+
+    from cuking_tpu_torch.ops.bitset import PlaneLayout
+    from cuking_tpu_torch.ops.compaction import HitBuffer
+    from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda_indexed
+    from cuking_tpu_torch.ops.king_emit import emit_hits, emit_hits_plain
+    from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
+    from cuking_tpu_torch.utils.synthetic import random_counters, random_planes
+
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device("cuda", 0)
+    planes = torch.from_numpy(
+        random_planes(2048, PlaneLayout.create(SITES), rng).view(np.int32)).to(dev)
+    off = panel_counts_cuda_indexed(planes, 0, 1024, 0, 1024)
+    tri = panel_counts_cuda_indexed(planes, 1024, 1024, 1, 1024)
+    ties = ((2, 20), (3, 25), (4, 28))
+    rand = KingCounts(*torch.from_numpy(random_counters(1000, 700, rng, ties)).to(dev).unbind(0))
+    tie = float(king_from_counts(rand).kin[ties[0]])
+    median = float(king_from_counts(off).kin.median())
+    check(np.isfinite(tie), "the tied kin is not finite")
+    # name, counters, gi_base, gj_base, i_limit, j_limit, threshold, strict,
+    # sym, capacity
+    cases = [
+        ("count kernel's counters off the diagonal, kin > its median", off,
+         0, 1024, 1024, 2048, median, True, False, 1 << 20),
+        ("a tri diagonal pair (its lower tiles unwritten), strict, keep-all", tri,
+         1024, 1024, 2048, 2048, -2.0, True, False, 1 << 20),
+        ("limits inside the block (1000 x 900 of 1024 x 1024), keep-all", off,
+         0, 1024, 1000, 1924, -2.0, True, False, 1 << 20),
+        ("random counters, NaN/-inf rows, 3 pairs at the threshold, strict and sym "
+         "across the diagonal", rand, 100, 90, 1100, 1100, tie, True, True, 1 << 20),
+        ("random counters, sym only, rectangular limits, keep-all", rand,
+         5000, 40, 5900, 700, -2.0, False, True, 1 << 20),
+        ("keep-all 1024 x 1024 into 1000 slots: overflow, exact count", off,
+         0, 1024, 1024, 2048, -2.0, True, False, 1000),
+    ]
+    max_err = 0
+    for name, counts, gi, gj, il, jl, threshold, strict, sym, capacity in cases:
+        args = (gi, gj, il, jl, threshold, strict, sym)
+        got = HitBuffer(capacity, dev)
+        emit_hits(counts, got, *args)
+        ref = HitBuffer(1 << 21, dev)
+        emit_hits_plain(counts, ref, *args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, compare_emits(got, ref, name))
+        total = int(got.count)
+        if threshold == tie:
+            kin_bits = got.rows(total)[2]
+            check(not (kin_bits == np.float32(tie).view(np.int32)).any(),
+                  f"{name}: a pair at the threshold passed")
+        check(total > 0, f"{name}: no hits")
+        say(f"phase 2b: {name}: {total} hits"
+            f"{f' ({capacity} kept)' if total > capacity else ''}, the same count and "
+            f"rows as the plain version")
+
+    # Times at the engine's shape, off the diagonal.  The launches cycle over
+    # four counter blocks (100 MB, twice the L2), so each reads device memory.
+    blocks = [panel_counts_cuda_indexed(planes, 0, 1024, 0, 1024) for _ in range(4)]
+    del off, tri, rand
+    iters, warmup = 40, 4
+    pairs = 1024 * 1024
+
+    def timed(fn, threshold, n_iters, n_warmup, timer):
+        hits = HitBuffer(pairs * (n_iters + n_warmup), dev)  # room for keep-all
+        cycle = itertools.cycle(blocks)
+        ms = timer(lambda: fn(next(cycle), hits, 0, 1024, 1024, 2048, threshold,
+                              True, False), n_iters, n_warmup)
+        return ms, int(hits.count) // (n_iters + n_warmup)
+
+    t = {}
+    (t["ms"], t["host_ms"]), hit_free = timed(emit_hits, 0.0884, iters, warmup, queued_ms)
+    (t["keep_all_ms"], _), keep_all = timed(emit_hits, -2.0, iters, warmup, queued_ms)
+    t["plain_ms"], _ = timed(emit_hits_plain, 0.0884, 3, 1, cuda_ms)
+    t["plain_keep_all_ms"], _ = timed(emit_hits_plain, -2.0, 3, 1, cuda_ms)
+    check(hit_free == 0 and keep_all > 0.99 * pairs,
+          f"the timed runs had {hit_free} and {keep_all} hits per launch")
+    t["bound_ms"], t["bound_by"] = emit_bound(pairs, hit_free)
+    t["keep_all_bound_ms"], _ = emit_bound(pairs, keep_all)
+    del blocks
+    torch.cuda.empty_cache()
+    say(f"phase 2b: emit 1024x1024 pairs: kernel hit-free {t['ms'] * 1e3:.1f} us "
+        f"(bound {t['bound_ms'] * 1e3:.1f} us), keep-all {t['keep_all_ms'] * 1e3:.1f} us "
+        f"(bound {t['keep_all_bound_ms'] * 1e3:.1f} us); the host's time per launch "
+        f"{t['host_ms'] * 1e3:.1f} us; plain version hit-free "
+        f"{t['plain_ms']:.3f} ms, keep-all {t['plain_keep_all_ms']:.3f} ms ({card})")
+    return {"max_abs_err": max_err, **t, "library_ms": None}
+
+
 def phase_engine(card: str):
     import torch
 
     from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
-    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.ops.bitset import PlaneLayout
     from cuking_tpu_torch.parallel.submatrix import Submatrix
     from cuking_tpu_torch.utils.stopwatch import StageLogger
@@ -363,12 +555,12 @@ def phase_engine(card: str):
     engine.planes_dev  # upload outside the timed sweep
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    king_cuda.launches = 0
+    reset_launches()
     t = time.perf_counter()
     rs = engine.run()
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t
-    launches = king_cuda.launches
+    launches = read_launches("the engine")
 
     got = {(int(i), int(j)) for i, j in zip(rs.i_idx, rs.j_idx)}
     check(got == set(expected), f"engine returned {len(got)} pairs, expected the 64 planted")
@@ -377,13 +569,30 @@ def phase_engine(card: str):
     check(bool(np.all(rs.ibs0 == 0) and np.all(rs.ibs1 == 0)), "planted ibs0/ibs1 not 0")
     for i, j, ibs2 in zip(rs.i_idx, rs.j_idx, rs.ibs2):
         check(int(ibs2) == expected[(int(i), int(j))], f"ibs2 of ({i}, {j})")
-    check(launches > 0, "the engine launched no count kernel")
+    steps = len(engine._panel_pair_params())
+    check(launches == {k: steps for k in KERNELS}, f"{launches} launches in {steps} steps")
     pairs = n * (n - 1) // 2
     peak = torch.cuda.max_memory_allocated()
     say(f"phase 3: {n} x {SITES} engine: exactly the 64 planted pairs, kin == 0.5, "
         f"ibs2 == defined sites; {launches} kernel launches")
     say(f"phase 3: sweep {sweep_s:.3f} s, {pairs / sweep_s:,.0f} pairs/s, "
         f"peak device memory {peak / 2**20:.0f} MiB ({card})")
+
+    # The step loop again, where any call that waits for the device raises.
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hits = engine.sweep(cfg.resolved_result_capacity())
+        enqueue_s = time.perf_counter() - t
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(int(hits.count) == len(planted), f"the checked sweep counted {int(hits.count)} hits")
+    torch.cuda.synchronize()
+    say(f"phase 3: the step loop under set_sync_debug_mode('error'): no sync in "
+        f"{steps} steps; the host queued them in {enqueue_s:.3f} s, the device "
+        f"finished {time.perf_counter() - t:.3f} s after the start ({card})")
+    del hits
     profile_sweep(engine, card)
     return launches, storage, rs
 
@@ -421,10 +630,14 @@ def profile_sweep(engine, card: str) -> None:
 def phase_keep_all(card: str):
     import torch
 
+    import io
+
+    from cuking_tpu_torch.models import king as king_model
     from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
-    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.ops.bitset import PlaneLayout
+    from cuking_tpu_torch.ops.king_emit import emit_hits_plain
     from cuking_tpu_torch.parallel.submatrix import Submatrix
+    from cuking_tpu_torch.utils.stopwatch import StageLogger
     from cuking_tpu_torch.utils.synthetic import fill_random_planes
 
     n = 4096
@@ -432,27 +645,41 @@ def phase_keep_all(card: str):
     layout = PlaneLayout.create(SITES)
     storage = PanelStorage(layout, Submatrix.create(n, 1, 0), 1024)
     fill_random_planes(storage.planes, layout, rng)
-    results, times, launches = {}, {}, 0
-    for kernel in ("cuda", "matmul"):
-        engine = KingEngine(storage, KingConfig(kernel=kernel, device="cuda",
-                                                kin_threshold=-2.0))
+    results, times, launches = {}, {}, {}
+    # The cuda engine, the matmul engine (its counters are stacked for the
+    # emit kernel), and the cuda engine with the emit kernel's plain version.
+    for run in ("cuda", "matmul", "cuda, plain emit"):
+        log = io.StringIO()
+        engine = KingEngine(storage, KingConfig(kernel=run.split(",")[0], device="cuda",
+                                                kin_threshold=-2.0),
+                            logger=StageLogger(stream=log))
         engine.planes_dev
         torch.cuda.synchronize()
-        king_cuda.launches = 0
-        t = time.perf_counter()
-        results[kernel] = engine.run()
-        times[kernel] = time.perf_counter() - t
-        launches += king_cuda.launches
-    a, b = results["cuda"], results["matmul"]
+        emit = king_model.emit_hits
+        if run.endswith("plain emit"):
+            king_model.emit_hits = emit_hits_plain
+        try:
+            reset_launches()
+            t = time.perf_counter()
+            results[run] = engine.run()
+            times[run] = time.perf_counter() - t
+            # The matmul engine counts through plain PyTorch products.
+            path_kernels = {"cuda": KERNELS, "matmul": ("king_emit",)}.get(run)
+            if path_kernels:
+                launches = add_launches(
+                    launches, read_launches(f"the {run} keep-all engine", path_kernels))
+        finally:
+            king_model.emit_hits = emit
+        check("re-running at capacity 8388608" in log.getvalue(),
+              f"the {run} keep-all engine did not re-run at 2^23 slots")
+    a = results["cuda"]
     check(len(a) == n * (n - 1) // 2, f"keep-all gave {len(a)} hits")
-    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
-        check(np.array_equal(getattr(a, f), getattr(b, f)), f"keep-all {f} differs")
-    check(np.array_equal(a.kin.view(np.uint32), b.kin.view(np.uint32)),
-          "keep-all kin bits differ")
-    say(f"phase 4: keep-all {n} x {SITES}: {len(a)} hits, cuda and matmul engines "
-        f"identical (sweep incl. sort: cuda {times['cuda']:.3f} s, matmul "
-        f"{times['matmul']:.3f} s, {card})")
-    check(launches > 0, "the keep-all engine launched no count kernel")
+    for run in ("matmul", "cuda, plain emit"):
+        same_results(results[run], a, f"keep-all {run} engine vs the cuda engine")
+    say(f"phase 4: keep-all {n} x {SITES}: {len(a)} hits past 2^20 slots, each sweep "
+        f"re-ran at 2^23; the cuda engine, the matmul engine and the cuda engine with "
+        f"the plain emit are identical (sweeps incl. the re-run and the sort: "
+        + ", ".join(f"{run} {s:.3f} s" for run, s in times.items()) + f", {card})")
     return launches, storage, a
 
 
@@ -472,7 +699,6 @@ def phase_cli(tmp: str):
     from cuking_tpu_torch import cli
     from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
     from cuking_tpu_torch.io.uri import Storage
-    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.utils.synthetic import random_genotypes
 
     g = random_genotypes(1000, 10_000, missing_rate=0.05, seed=SEED,
@@ -480,18 +706,17 @@ def phase_cli(tmp: str):
     inp = f"{tmp}/in.parquet"
     write_synthetic_input(Storage(), inp, g)
 
-    king_cuda.launches = 0
+    reset_launches()
     run_cli(inp, f"{tmp}/split1", "--device", "cuda")
     for shard in range(3):
         run_cli(inp, f"{tmp}/split2", "--device", "cuda", "--split_factor", "2",
                 "--shard_index", str(shard))
-    launches = king_cuda.launches
+    launches = read_launches("the CLI")
     run_cli(inp, f"{tmp}/cpu", "--device", "cpu", "--kernel", "matmul")
     split1, split2, cpu = (_rows(f"{tmp}/{d}") for d in ("split1", "split2", "cpu"))
     check(len(split1) >= 5, f"CLI found {len(split1)} related pairs, expected >= 5")
     check(split2 == split1, "merged split-2 shards differ from the split-1 run")
     check(cpu == split1, "the cuda run differs from the CPU plain-path run")
-    check(launches > 0, "the CLI launched no count kernel")
     say(f"phase 5: CLI 1000 x 10000: {len(split1)} rows; split 2 merged == split 1 "
         f"== --device cpu --kernel matmul, bit for bit; {launches} kernel launches")
     return launches, inp, split1
@@ -518,10 +743,9 @@ def ring_kw(**kw) -> dict:
     return dict(kernel=panel_counts_cuda, indexed_kernel=panel_counts_cuda_indexed, **kw)
 
 
-def phase_ring(card: str, storage, engine_rs) -> int:
+def phase_ring(card: str, storage, engine_rs) -> dict:
     import torch
 
-    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.parallel.ring import (
         RingMesh,
         _pad_and_shard,
@@ -534,15 +758,14 @@ def phase_ring(card: str, storage, engine_rs) -> int:
     blocks, nd = _pad_and_shard(storage.planes, n, mesh, 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    king_cuda.launches = 0
+    reset_launches()
     t = time.perf_counter()
     out = all_pairs_presharded(blocks, n, **ring_kw(mesh=mesh, kin_threshold=0.0884))
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t
-    launches = king_cuda.launches
+    launches = read_launches("the ring")
     rs = ring_output_to_resultset(out)
     same_results(rs, engine_rs, "4-position ring vs engine")
-    check(launches > 0, "the ring launched no count kernel")
     pairs = n * (n - 1) // 2
     peak = torch.cuda.max_memory_allocated()
     say(f"phase 6: ring of 4 positions on cuda:0 at {n} x {SITES}: exactly the "
@@ -553,11 +776,10 @@ def phase_ring(card: str, storage, engine_rs) -> int:
     return launches
 
 
-def phase_rings_keep_all(card: str, storage, engine_rs) -> int:
+def phase_rings_keep_all(card: str, storage, engine_rs) -> dict:
     import torch
 
     from cuking_tpu_torch.models.king import PanelStorage, ResultSet
-    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.parallel.ring import (
         RingMesh,
         all_pairs_sharded,
@@ -567,16 +789,15 @@ def phase_rings_keep_all(card: str, storage, engine_rs) -> int:
     from cuking_tpu_torch.parallel.submatrix import Submatrix
 
     n = storage.submatrix.num_rows
-    launches = 0
+    launches = {}
 
     def timed(what, fn):
         nonlocal launches
-        king_cuda.launches = 0
+        reset_launches()
         t = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
-        launches += king_cuda.launches
-        check(king_cuda.launches > 0, f"{what}: no count kernel launched")
+        launches = add_launches(launches, read_launches(what))
         return result, time.perf_counter() - t
 
     out, t3 = timed("3-position ring", lambda: all_pairs_sharded(
@@ -618,27 +839,24 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-# The --distributed child: the CLI's entry point, then its launch count.
+# The --distributed child: the CLI's entry point, then its launch counts.
 _CHILD = (
     "import sys\n"
     "from cuking_tpu_torch import cli\n"
-    "from cuking_tpu_torch.ops import king_cuda\n"
+    "from cuking_tpu_torch.ops import king_cuda, king_emit\n"
     "rc = cli.main(sys.argv[1:])\n"
-    "print('LAUNCHES', king_cuda.launches)\n"
+    "print('LAUNCHES', king_cuda.launches, king_emit.emit_launches)\n"
     "sys.exit(rc)\n"
 )
 
 
-def phase_cli_mesh(tmp: str, inp: str, split1: list) -> int:
-    from cuking_tpu_torch.ops import king_cuda
-
-    king_cuda.launches = 0
+def phase_cli_mesh(tmp: str, inp: str, split1: list) -> dict:
+    reset_launches()
     mesh = ["--use_mesh", "--device", "cuda:0,cuda:0"]
     run_cli(inp, f"{tmp}/mesh1", *mesh)
     for shard in range(3):
         run_cli(inp, f"{tmp}/mesh2", *mesh, "--split_factor", "2", "--shard_index", str(shard))
-    launches = king_cuda.launches
-    check(launches > 0, "the mesh CLI launched no count kernel")
+    launches = read_launches("the mesh CLI")
     check(_rows(f"{tmp}/mesh1") == split1, "--use_mesh split 1 differs from phase 5")
     check(_rows(f"{tmp}/mesh2") == split1, "--use_mesh split 2 merged differs from phase 5")
 
@@ -652,22 +870,22 @@ def phase_cli_mesh(tmp: str, inp: str, split1: list) -> int:
     )
     check(proc.returncode == 0,
           f"--distributed exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-    child = int(proc.stdout.split("LAUNCHES")[-1].split()[0])
-    check(child > 0, "the --distributed run launched no count kernel")
+    child = dict(zip(KERNELS, map(int, proc.stdout.split("LAUNCHES")[-1].split()[:2])))
+    check(min(child.values()) > 0, f"the --distributed run's launches: {child}")
     check("rank 0 of 1, 4 ring positions" in proc.stdout,
           "--distributed did not start a world of 1 with 4 positions")
     check(_rows(f"{tmp}/dist") == split1, "--distributed differs from phase 5")
     say(f"phase 8: --use_mesh on 2 positions (split 1; split 2 merged) and "
         f"--distributed (NCCL, world 1, 4 positions on cuda:0) == phase 5's "
         f"{len(split1)} rows, bit for bit; {launches} + {child} kernel launches")
-    return launches + child
+    return add_launches(launches, child)
 
 
 def phase_king_popcount(card: str):
     import torch
 
     from cuking_tpu_torch import KingConfig, KingEngine, king
-    from cuking_tpu_torch.ops import king_cuda
+    from cuking_tpu_torch.ops import king_cuda, king_emit
     from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 
     rng = np.random.default_rng(SEED + 3)
@@ -675,13 +893,14 @@ def phase_king_popcount(card: str):
     g[7] = g[1000]                      # a duplicate: kin 0.5
     g[11] = -1                          # all missing: NaN kin
     g[12] = np.where(g[12] == 1, 2, g[12])  # no hets: -inf kin
-    king_cuda.launches = 0
+    reset_launches()
     t = time.perf_counter()
     got = king(g, device="cuda")
     torch.cuda.synchronize()
     king_s = time.perf_counter() - t
-    launches = king_cuda.launches
-    check(launches > 0, "king() launched no count kernel")
+    launches = {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches}
+    check(launches["king_counts"] > 0, "king() launched no count kernel")
+    check(launches["king_emit"] == 0, "king() is dense: it emits nothing")
     ref = king(g, kernel=lambda a, b: panel_counts_matmul(a, b), device="cuda")
     check(torch.equal(got.kin.view(torch.int32), ref.kin.view(torch.int32)),
           "king(): kin bits differ from the plain version")
@@ -701,13 +920,17 @@ def phase_king_popcount(card: str):
     runs = {}
     for kernel in ("popcount", "cuda"):
         cfg = KingConfig(kernel=kernel, device="cuda", kin_threshold=-2.0)
+        reset_launches()
         t = time.perf_counter()
         runs[kernel] = KingEngine.from_genotypes(g2, cfg).run()
         runs[kernel + "_s"] = time.perf_counter() - t
+        check(king_emit.emit_launches > 0, f"the {kernel} engine launched no emit kernel")
+        launches["king_emit"] += king_emit.emit_launches
+        launches["king_counts"] += king_cuda.launches
     same_results(runs["popcount"], runs["cuda"], "popcount engine vs cuda engine")
     say(f"phase 9: popcount engine {g2.shape[0]} x {g2.shape[1]} keep-all == cuda engine "
         f"({len(runs['cuda'])} hits; popcount {runs['popcount_s']:.3f} s, cuda "
-        f"{runs['cuda_s']:.3f} s, {card})")
+        f"{runs['cuda_s']:.3f} s, {card}); {launches} kernel launches")
     return launches
 
 
@@ -719,30 +942,33 @@ def _stage_seconds(log: str, message: str) -> float:
     return float(m.group(1))
 
 
-def trace_summary(path: str) -> tuple[int, float, float]:
-    """(launches of the wgmma kernel, device busy ms, traced span ms) of a
+# The kernels' names in a trace, by the name of their launch counters.
+TRACE_NAMES = {"king_counts": "king_counts_wgmma_kernel", "king_emit": "king_emit_kernel"}
+
+
+def trace_summary(path: str) -> tuple[dict, float, float]:
+    """(launches of each kernel, device busy ms, traced span ms) of a
     Chrome trace written by ``--profile_dir``; busy counts kernels, copies
     and memsets on the device."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     check(bool(events), f"{path} holds no events")
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    launches = sum(1 for e in device
-                   if e["cat"] == "kernel" and "king_counts_wgmma_kernel" in e["name"])
+    launches = {k: sum(1 for e in device if e["cat"] == "kernel" and name in e["name"])
+                for k, name in TRACE_NAMES.items()}
     busy_us = sum(float(e["dur"]) for e in device)
     start = min(float(e["ts"]) for e in events)
     end = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
     return launches, busy_us / 1e3, (end - start) / 1e3
 
 
-def phase_fan_out(tmp: str, card: str) -> int:
+def phase_fan_out(tmp: str, card: str) -> dict:
     import contextlib
     import io
 
     from cuking_tpu_torch.cloud import batch_submit
     from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
     from cuking_tpu_torch.io.uri import Storage
-    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.utils.synthetic import random_genotypes
 
     n = 2048
@@ -811,7 +1037,7 @@ def phase_fan_out(tmp: str, card: str) -> int:
     say(f"phase 10: start-up (python3, import the CLI, CUDA context, exit) "
         f"{startup_s:.3f} s ({card})")
 
-    launches = 0
+    launches = {}
     for k in range(group["taskCount"]):
         plain_s, log = run_task(plain_command, k)
         say(f"phase 10: task {k} without --profile_dir: exit 0, wall {plain_s:.3f} s, "
@@ -819,11 +1045,12 @@ def phase_fan_out(tmp: str, card: str) -> int:
         wall_s, log = run_task(command, k)
         task_launches, busy_ms, span_ms = trace_summary(
             f"{traces}/trace-part-{k:05d}.json")
-        check(task_launches > 0, f"task {k}: no king_counts_wgmma_kernel in its trace")
-        launches += task_launches
+        for name, n in task_launches.items():
+            check(n > 0, f"task {k}: no {TRACE_NAMES[name]} in its trace")
+        launches = add_launches(launches, task_launches)
         say(f"phase 10: task {k} with --profile_dir: exit 0, wall {wall_s:.3f} s "
             f"({wall_s - plain_s:+.3f} s against the untraced run), {stages(log)} with "
-            f"{task_launches} kernel launch(es); traced sweep {span_ms:.1f} ms, device "
+            f"kernel launches {task_launches}; traced sweep {span_ms:.1f} ms, device "
             f"busy {busy_ms:.3f} ms = {100 * busy_ms / span_ms:.2f}% ({card})")
 
     state = batch_submit.wait_for_completion(
@@ -832,9 +1059,9 @@ def phase_fan_out(tmp: str, card: str) -> int:
         sleep=lambda s: None, log=lambda *_: None)
     check(state == "SUCCEEDED" and os.path.isfile(f"{out}/_SUCCESS"),
           "wait_for_completion wrote no _SUCCESS")
-    king_cuda.launches = 0
+    reset_launches()
     run_cli(inp, f"{tmp}/fan_split1", "--device", "cuda")
-    check(king_cuda.launches > 0, "the split-1 reference run launched no count kernel")
+    read_launches("the split-1 reference run")
     merged, split1 = _rows(out), _rows(f"{tmp}/fan_split1")
     check(len(split1) >= 4, f"split 1 found {len(split1)} related pairs, expected >= 4")
     check(merged == split1, "the merged fan-out partitions differ from the split-1 run")
@@ -862,7 +1089,7 @@ def main() -> int:
     torch.cuda.set_device(0)
     card = phase_env()
     phase_build()
-    record = phase_kernel(card)
+    records = {"king_counts": phase_kernel(card), "king_emit": phase_emit(card)}
     popc_launches = king_cuda.popc_launches
     launches = {}
     launches["engine"], engine_storage, engine_rs = phase_engine(card)
@@ -877,15 +1104,19 @@ def main() -> int:
         launches["fan_out"] = phase_fan_out(tmp, card)
     check(king_cuda.popc_launches == popc_launches,
           "the AND + popcount yardstick launched on the main path")
+    # The emit kernel replaces no TPU kernel: the JAX package left the step
+    # after the count kernel to XLA, and accumulate_hits is its compaction.
+    replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",
+                "king_emit": "cuking_tpu/ops/compaction.py:95"}
     say(json.dumps({"kernels": [{
-        "name": "king_counts",
+        "name": name,
         "route": "cuda",
-        "source": "cuking_tpu_torch/csrc/king_counts.cu",
-        "replaces": "cuking_tpu/ops/king_pallas.py:359",
-        "launches": sum(launches.values()),
-        "launches_by_path": launches,
-        **record,
-    }]}))
+        "source": f"cuking_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces[name],
+        "launches": sum(per_path[name] for per_path in launches.values()),
+        "launches_by_path": {path: per_path[name] for path, per_path in launches.items()},
+        **records[name],
+    } for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -146,8 +146,8 @@ def build_parser() -> argparse.ArgumentParser:
         "pow2-bucketed capacity, so this is only a memory knob"))
     p.add_argument("--result_capacity", type=int, default=0, help=(
         "Initial device result-buffer slots (0 = auto: min(max_results, "
-        "2^20)); the buffer grows to the next pow2 bucket when a sweep "
-        "needs more"))
+        "2^20)); a sweep whose hit count exceeds it re-runs once at the "
+        "next pow2 bucket"))
     p.add_argument("--skip_existing", action="store_true", help=(
         "Exit successfully without recomputing when this shard's output "
         "partition already exists (idempotent fan-out restarts)"))

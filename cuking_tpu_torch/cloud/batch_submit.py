@@ -43,8 +43,8 @@ GPU_TYPE = "nvidia-h100-80gb"
 # * Planes.  ``utils/hbm.check_engine_fit`` admits a shard whose planes,
 #   result buffers and per-step transients fit in 92% of the card's free
 #   memory.  An H100 80GB has at most 81,559 MiB, so at most 75,034 MiB;
-#   the default buffers take 736 MiB (2 x 10,485,760 result slots x 24 B,
-#   plus 256 B x 1024² of transients), leaving at most 74,298 MiB of planes.
+#   the default buffers take 496 MiB (10,485,760 result slots x 24 B, plus
+#   256 B x 1024² of transients), leaving at most 74,538 MiB of planes.
 #   The host holds the same planes (``PanelStorage.planes``) while it
 #   ingests, and uploads them without a second host copy.
 # * Ingest.  ``io/parquet_ingest.py`` keeps at most 2 files per decode
@@ -55,7 +55,7 @@ GPU_TYPE = "nvidia-h100-80gb"
 # * The process: Python, torch and the CUDA runtime, and the result set
 #   with its sort (up to 10,485,760 rows of 24 B, a few copies): 8,192 MiB.
 #
-# 74,298 + 24,576 + 8,192 = 107,066, rounded up to 105 GiB = 107,520 MiB,
+# 74,538 + 24,576 + 8,192 = 107,306, rounded up to 105 GiB = 107,520 MiB,
 # under the 234 GB of ``a3-highgpu-1g``.  The reference asked 85 GiB
 # (87,040 MiB) of ``a2-highgpu-1g`` for a 40 GB A100.
 DEFAULT_MEMORY_MIB = 107_520

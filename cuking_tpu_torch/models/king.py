@@ -3,8 +3,9 @@ packed planes for one shard, in PyTorch.
 
 * The pair matrix is swept in fixed-size **sample panels** (default 1024):
   for every (i-panel, j-panel) pair of the shard with any candidate i < j,
-  one step runs the count kernel, the fp32 epilogue, the mask
-  ``valid & i < j & kin > threshold`` and the compaction.
+  one step runs the count kernel and the emit step (ops/king_emit.py: the
+  fp32 epilogue, the mask ``valid & i < j & kin > threshold`` and the
+  compaction, one CUDA kernel on a card).
 * The planes are uploaded once, as an int32 view of the uint32 words, and
   the count kernel reads each panel in place through row offsets (the
   indexed entry); a diagonal panel pair sets ``tri`` so the CUDA kernel skips
@@ -12,13 +13,16 @@ packed planes for one shard, in PyTorch.
 * Sample storage follows the reference's shard layout: the Submatrix i-range
   stored before the j-range (cuking.cu:171-175), each padded to a panel
   multiple with all-missing samples.
-* Results: hits go into ONE device buffer (ops/compaction.py) fetched once
-  after the sweep.  ``nonzero`` gives each step's exact hit count, so the
-  buffer grows in place (pow2, capped at ``max_results``) where the TPU
-  engine re-ran the sweep at a larger static capacity; the outputs are
-  identical either way.  A total above ``max_results`` raises
-  ResourceExhausted (cuking.cu:747-751) and the host sorts by (i, j, kin)
-  (cuking.cu:761-765).
+* Results: hits go into ONE fixed-capacity device buffer whose int64 count
+  stays exact past capacity (ops/compaction.py), the JAX sweep's result
+  model.  On a card the step loop reads nothing from the device: the
+  ``max_results`` check reads non-blocking copies of the count taken every
+  ``LIMIT_CHECK_STEPS`` steps, once they have landed, and raises
+  ResourceExhausted (cuking.cu:747-751) when one exceeds it.  After the
+  sweep the count is read once; a total in (capacity, max_results] re-runs
+  the sweep once at the next power of two, as the JAX engine does.  The host
+  fetches the buffer in one copy and sorts by (i, j, kin)
+  (cuking.cu:761-765), which also undoes the atomic slot order.
 
 Kernels (``KingConfig.kernel``): ``cuda`` (the hand-written count kernel,
 ops/king_cuda.py), ``matmul`` (the plain PyTorch int8 product,
@@ -38,13 +42,14 @@ import torch
 
 from cuking_tpu_torch.ops import bitset
 from cuking_tpu_torch.ops.bitset import PlaneLayout
-from cuking_tpu_torch.ops.compaction import ResultBuffer, compact_hits
+from cuking_tpu_torch.ops.compaction import HitBuffer, ceil_pow2
 from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
-from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
+from cuking_tpu_torch.ops.king_emit import emit_hits
+from cuking_tpu_torch.ops.king_math import KingCounts
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 from cuking_tpu_torch.ops.king_popcount import panel_counts_popcount
 from cuking_tpu_torch.parallel.submatrix import Submatrix
-from cuking_tpu_torch.utils.status import InvalidArgumentError
+from cuking_tpu_torch.utils.status import InvalidArgumentError, ResourceExhaustedError
 from cuking_tpu_torch.utils.stopwatch import StageLogger
 
 DEFAULT_KIN_THRESHOLD = 0.0884  # 2nd degree or closer (cuking.cu:43-45)
@@ -53,6 +58,9 @@ DEFAULT_MAX_RESULTS = 10 << 20  # cuking.cu:40-41
 # so a hit-light sweep doesn't allocate the reference's full 252 MiB.
 DEFAULT_RESULT_CAPACITY = 1 << 20
 KERNELS = ("auto", "cuda", "matmul", "popcount")
+# Steps between the sweep's non-blocking copies of its hit count (the JAX
+# sweep checks max_results once per 64-step dispatch).
+LIMIT_CHECK_STEPS = 64
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -145,6 +153,12 @@ class ResultSet:
         # Sort by (i, j, kin) ascending, like cuking.cu:761-765.
         order = np.lexsort((fields["kin"], fields["j_idx"], fields["i_idx"]))
         return cls(**{k: v[order] for k, v in fields.items()})
+
+    @classmethod
+    def from_rows(cls, rows: np.ndarray) -> "ResultSet":
+        """[6, n] int32 hit rows ``(i, j, kin bits, ibs0, ibs1, ibs2)``,
+        unsorted."""
+        return cls(rows[0], rows[1], rows[2].view(np.float32), rows[3], rows[4], rows[5])
 
 
 class PanelStorage:
@@ -310,44 +324,59 @@ class KingEngine:
         thresholded, sorted results."""
         cfg = self.config
         st = self.storage
-        planes = self.planes_dev
-        params = self._panel_pair_params()
-        threshold = torch.tensor(cfg.kin_threshold, dtype=torch.float32,
-                                 device=self.device)
-        local = torch.arange(cfg.panel, dtype=torch.int32, device=self.device)
-        # lj - li for every pair of the panel: global i < j  <=>
-        # lj - li > gi_base - gj_base.
-        lj_minus_li = local[None, :] - local[:, None]
-        hits = ResultBuffer(cfg.resolved_result_capacity(), cfg.max_results,
-                            self.device, self.logger)
-        self.logger.begin(
-            f"Running KING kernel for {st.nr} x {st.nc} matrix"
-            f" ({len(params)} panel-pair steps)..."
-        )
-        for i_off, j_off, gi_base, gj_base, ni, nj in params.tolist():
-            # A diagonal panel pair (same global base) lets the CUDA kernel
-            # skip lower-triangle tiles; the i<j mask discards them anyway.
-            counts = self._counts(planes, i_off, j_off, gi_base == gj_base)
-            res = king_from_counts(counts)
-            # Strict upper triangle on GLOBAL indices (cuking.cu:199) and
-            # strict > threshold (cuking.cu:297); NaN kin never passes.
-            mask = (lj_minus_li[:ni, :nj] > gi_base - gj_base) & (
-                res.kin[:ni, :nj] > threshold
+        capacity = cfg.resolved_result_capacity()
+        while True:
+            self.logger.begin(
+                f"Running KING kernel for {st.nr} x {st.nc} matrix"
+                f" ({len(self._panel_pair_params())} panel-pair steps)..."
             )
-            hits.append(compact_hits(mask, gi_base, gj_base, res))
-        self.logger.end("king_kernel")
+            hits = self.sweep(capacity)
+            total = int(hits.count)  # the sweep's one read of the device
+            self.logger.end("king_kernel")
+            _check_max_results(total, cfg.max_results)
+            if total <= capacity:
+                break
+            # Exact total in (capacity, max_results]: re-run once at the
+            # next pow2 bucket, as the JAX engine does.
+            new_capacity = min(ceil_pow2(total), cfg.max_results)
+            self.logger.print(
+                f"Result buffer overflowed ({total} hits > {capacity} "
+                f"slots); re-running at capacity {new_capacity}."
+            )
+            capacity = new_capacity
+            del hits  # free the full buffer before the next one is made
 
-        total = hits.count
         self.logger.print(f"Processing {total} results...")
         if total == 0:
             return ResultSet.concat_and_sort([])
-        arr = hits.to_host()
-        part = ResultSet(
-            i_idx=arr[0],
-            j_idx=arr[1],
-            kin=arr[2].view(np.float32),
-            ibs0=arr[3],
-            ibs1=arr[4],
-            ibs2=arr[5],
+        return ResultSet.concat_and_sort([ResultSet.from_rows(hits.rows(total))])
+
+    def sweep(self, capacity: int) -> HitBuffer:
+        """Runs every panel-pair step into a fresh :class:`HitBuffer` of
+        ``capacity`` slots and returns it.  A step is one count launch and
+        one emit launch; on a card nothing here waits for the device (the
+        caller reads ``count``).  Every ``LIMIT_CHECK_STEPS`` steps a copy of
+        the count starts, and ResourceExhausted is raised as soon as a copy
+        that has landed exceeds ``max_results``."""
+        cfg = self.config
+        planes = self.planes_dev
+        hits = HitBuffer(capacity, self.device)
+        params = self._panel_pair_params().tolist()
+        for step, (i_off, j_off, gi_base, gj_base, ni, nj) in enumerate(params, 1):
+            # A diagonal panel pair (same global base) lets the CUDA kernel
+            # skip lower-triangle tiles; the strict i<j mask never reads them.
+            counts = self._counts(planes, i_off, j_off, gi_base == gj_base)
+            emit_hits(counts, hits, gi_base, gj_base, gi_base + ni, gj_base + nj,
+                      cfg.kin_threshold, strict=True, sym=False)
+            if step % LIMIT_CHECK_STEPS == 0:
+                hits.snapshot()
+                _check_max_results(hits.latest_snapshot(), cfg.max_results)
+        return hits
+
+
+def _check_max_results(count: int | None, max_results: int) -> None:
+    if count is not None and count > max_results:
+        raise ResourceExhaustedError(
+            "Could not store all results: try increasing the "
+            "--max_results parameter."
         )
-        return ResultSet.concat_and_sort([part])

@@ -1,26 +1,30 @@
-"""Port of ``cuking_tpu/ops/compaction.py``: thresholded hits into one
+"""Port of ``cuking_tpu/ops/compaction.py``: thresholded hits in one
 device-resident result buffer — the analogue of the reference's
 ``KingResult[max_results]`` array and atomic slot counter
 (cuking.cu:296-313, 747-751).
 
-PyTorch runs eagerly, so each panel-pair step compacts its mask with
-``nonzero`` (which returns the exact hit count to the host) and gathers the
-six fields; the buffer appends them at its running count.  The TPU package's
-``top_k`` fast path and its scatter fallback worked around slow TPU scatters
-under static shapes and are not needed here.
+:class:`HitBuffer` has the contract of the JAX package's
+``accumulate_hits``: a fixed capacity, and a running hit count that stays
+exact past it.  The count is a device int64 tensor, so a sweep that appends
+through the emit kernel (``ops/king_emit.py``) reads nothing from the device
+until it ends; callers decide overflow from the final count (the engine
+re-runs at a larger capacity, the ring all-reduces the counts first).
 
-Two buffers: the engine's :class:`ResultBuffer` grows and raises as soon as
-a step crosses ``max_results``; the ring's per-position :class:`HitBuffer`
-has a fixed capacity, keeps its count exact past it and never raises.
+:func:`compact_hits` and :meth:`HitBuffer.append` belong to the emit
+kernel's plain version: ``nonzero`` of a step's mask, a gather of the six
+fields, and a write at the running count.  The TPU package's ``top_k`` fast
+path and its scatter fallback worked around slow TPU scatters under static
+shapes and are not needed here.
 """
 
 from __future__ import annotations
+
+from collections import deque
 
 import numpy as np
 import torch
 
 from cuking_tpu_torch.ops.king_math import KingResult
-from cuking_tpu_torch.utils.status import ResourceExhaustedError
 
 
 def ceil_pow2(n: int) -> int:
@@ -47,69 +51,54 @@ def compact_hits(
     )
 
 
-class ResultBuffer:
-    """One [6, capacity] int32 device buffer with a running hit count.
-
-    It grows to the next power of two of the needed size, capped at
-    ``max_results``, by copying into a larger buffer; a total beyond
-    ``max_results`` raises ResourceExhausted with the reference's message
-    (cuking.cu:747-751) as soon as a step crosses it."""
-
-    def __init__(self, capacity: int, max_results: int, device, logger=None):
-        self.max_results = max_results
-        self.buf = torch.empty((6, capacity), dtype=torch.int32, device=device)
-        self.count = 0
-        self._logger = logger
-
-    @property
-    def capacity(self) -> int:
-        return self.buf.shape[1]
-
-    def append(self, hits: torch.Tensor) -> None:
-        total = self.count + hits.shape[1]
-        if total > self.max_results:
-            raise ResourceExhaustedError(
-                "Could not store all results: try increasing the "
-                "--max_results parameter."
-            )
-        if total > self.capacity:
-            new_capacity = min(ceil_pow2(total), self.max_results)
-            if self._logger is not None:
-                self._logger.print(
-                    f"Result buffer full ({total} hits > {self.capacity} "
-                    f"slots); growing it to {new_capacity}."
-                )
-            grown = self.buf.new_empty((6, new_capacity))
-            grown[:, : self.count] = self.buf[:, : self.count]
-            self.buf = grown
-        self.buf[:, self.count : total] = hits
-        self.count = total
-
-    def to_host(self) -> np.ndarray:
-        """The hits as one [6, count] int32 host array (one transfer)."""
-        return self.buf[:, : self.count].cpu().numpy()
-
-
 class HitBuffer:
-    """One ring position's fixed [6, capacity] int32 device buffer.
-
-    Unlike :class:`ResultBuffer` it never grows and never raises: hits past
-    ``capacity`` are dropped while ``count`` stays the exact total, as in the
-    TPU package's ring (``accumulate_hits``).  The ring decides overflow
-    only after the sweep, from the counts of every position, so that in a
-    multi-process run every rank raises or retries together instead of one
-    rank leaving its peers waiting in the next collective."""
+    """One fixed [6, capacity] int32 device buffer of rows ``(i, j, kin
+    bits, ibs0, ibs1, ibs2)`` and ``count``, a 0-dim int64 tensor on the
+    same device: the exact number of hits appended, which may pass
+    ``capacity`` (hits past it are dropped)."""
 
     def __init__(self, capacity: int, device):
         self.buf = torch.empty((6, capacity), dtype=torch.int32, device=device)
-        self.count = 0
+        self.count = torch.zeros((), dtype=torch.int64, device=device)
+        self._snapshots: deque = deque()
 
     @property
     def capacity(self) -> int:
         return self.buf.shape[1]
 
     def append(self, hits: torch.Tensor) -> None:
-        take = min(hits.shape[1], max(0, self.capacity - self.count))
+        """Appends [6, n] rows at the running count (the plain version; it
+        reads the count, so on a card it waits for the device)."""
+        start = int(self.count)
+        take = min(hits.shape[1], max(0, self.capacity - start))
         if take:
-            self.buf[:, self.count : self.count + take] = hits[:, :take]
+            self.buf[:, start : start + take] = hits[:, :take]
         self.count += hits.shape[1]
+
+    def rows(self, total: int) -> np.ndarray:
+        """The first ``min(total, capacity)`` rows as one [6, n] int32 host
+        array (one transfer)."""
+        return self.buf[:, : min(total, self.capacity)].cpu().numpy()
+
+    def snapshot(self) -> None:
+        """Starts a copy of the count into pinned host memory and returns
+        without waiting for it."""
+        host = torch.empty((), dtype=torch.int64, pin_memory=self.count.is_cuda)
+        host.copy_(self.count, non_blocking=True)
+        event = None
+        if self.count.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.count.device))
+        self._snapshots.append((host, event))
+
+    def latest_snapshot(self) -> int | None:
+        """The newest snapshot whose copy has completed, or None; older
+        snapshots are dropped.  Never waits for the device."""
+        latest = None
+        while self._snapshots:
+            host, event = self._snapshots[0]
+            if event is not None and not event.query():
+                break
+            self._snapshots.popleft()
+            latest = int(host)
+        return latest

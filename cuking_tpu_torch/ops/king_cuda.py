@@ -17,8 +17,10 @@ mask with the strict global ``i < j`` predicate (cuking.cu:199).
 A CPU tensor takes the plain version, :func:`panel_counts_five_block`: the
 same five int8 products as the kernel, through ``torch._int_mm``.  A CUDA
 tensor launches the kernel or raises; nothing falls back.  The kernels are
-built with ``nvcc`` at first use, from the sources in ``csrc/``, into
-``_build/``, and bound through a plain C interface with ctypes.  The library
+built with ``nvcc`` at first use, from the sources in ``csrc/``, into one
+library in ``_build/``, and bound through a plain C interface with ctypes;
+the library also holds the emit kernel (``csrc/king_emit.cu``), which
+``ops/king_emit.py`` launches.  The library
 is current while the SHA-256 of ``csrc/`` and the nvcc flags, stored beside
 it at build time, still matches: a digest and not a modification time, so
 that a library prebuilt into a container image stays current after ``COPY``
@@ -49,7 +51,7 @@ from cuking_tpu_torch.utils.status import (
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCE = os.path.join(CSRC, "king_counts.cu")
+SOURCES = (os.path.join(CSRC, "king_counts.cu"), os.path.join(CSRC, "king_emit.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libking_counts.so")
 DIGEST_PATH = os.path.join(BUILD_DIR, "libking_counts.sha256")
@@ -57,9 +59,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# C entries of the library, all with king_counts_launch's signature.
+# C entries of the library.  The two count entries share
+# king_counts_launch's signature.
 ENTRY = "king_counts_launch"            # the wgmma kernel: the main path
 POPC_ENTRY = "king_counts_popc_launch"  # the AND + popcount yardstick
+EMIT_ENTRY = "king_emit_launch"         # the emit kernel (ops/king_emit.py)
 
 # Kernel launches since import (or since a caller reset them to 0).
 launches = 0       # the wgmma kernel
@@ -109,7 +113,7 @@ def _compile_if_stale() -> str:
     tmp = f"{LIB_PATH}.tmp-{os.getpid()}"
     try:
         proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE], capture_output=True, text=True
+            [nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES], capture_output=True, text=True
         )
     except FileNotFoundError as e:
         raise FailedPreconditionError(f"nvcc not found: {e}")
@@ -146,8 +150,24 @@ def build() -> str:
                     p, i64, i64, i64,  # planes_j, rows_j, j_off, nj
                     i64, ctypes.c_int, p, p,  # words, tri, out, stream
                 ]
+            emit = getattr(lib, EMIT_ENTRY)
+            emit.restype = ctypes.c_int
+            emit.argtypes = [
+                p, i64, i64,       # counts, ni, nj
+                i64, i64, i64, i64,  # gi_base, gj_base, i_limit, j_limit
+                ctypes.c_float, ctypes.c_int, ctypes.c_int,  # threshold, strict, sym
+                p, i64, p, p,      # out, capacity, count, stream
+            ]
             _lib = lib
     return report
+
+
+def library():
+    """The loaded kernel library, built first if this process has not
+    loaded it yet."""
+    if _lib is None:
+        build()
+    return _lib
 
 
 def five_block_indicators(planes: torch.Tensor):
@@ -263,12 +283,11 @@ def _launch(entry, planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
     for name, p in (("planes_i", planes_i), ("planes_j", planes_j)):
         if p.data_ptr() % 16:
             raise InvalidArgumentError(f"{name} is not 16-byte aligned")
-    if _lib is None:
-        build()
+    lib = library()
     out = torch.empty((6, ni, nj), dtype=torch.int32, device=planes_i.device)
     stream = torch.cuda.current_stream(planes_i.device).cuda_stream
     with torch.cuda.device(planes_i.device):
-        err = getattr(_lib, entry)(
+        err = getattr(lib, entry)(
             planes_i.data_ptr(), planes_i.shape[1], i_off, ni,
             planes_j.data_ptr(), planes_j.shape[1], j_off, nj,
             words, 1 if tri else 0, out.data_ptr(), stream,

@@ -39,15 +39,19 @@ What replaces the TPU package's machinery:
   step's higher half reads the visitor at row offset ``p1`` through the
   indexed entry: the CUDA kernel takes any offset, where the Pallas kernel
   needed a sliced copy.
-* Hits go into one fixed-capacity :class:`HitBuffer` per position whose
-  count stays exact past capacity.  After the sweep the per-position counts
-  are all-reduced, so the overflow retry (``_run_with_retry``) and the
-  overflow errors (``_check_overflow``) are decided the same way on every
-  rank: the reference's global ``max_results`` bound (cuking.cu:747-751).
+* Each sub-tile's hits go through the emit step (ops/king_emit.py: one CUDA
+  kernel on a card) into one fixed-capacity :class:`HitBuffer` per position,
+  whose device count stays exact past capacity.  After the sweep each
+  position's count is read once and the counts are all-reduced, so the
+  overflow retry (``_run_with_retry``) and the overflow errors
+  (``_check_overflow``) are decided the same way on every rank: the
+  reference's global ``max_results`` bound (cuking.cu:747-751).
 
-The host synchronises at every sub-tile (``nonzero`` returns the hit count),
-so positions on separate GPUs of one process run one after another, not side
-by side.
+Between rotations nothing waits for a device: on a card a sub-tile is two
+kernel launches on its position's current stream, so positions on separate
+GPUs of one process run side by side.  A rotation between local positions
+is a device copy ordered on the streams; one between ranks waits for its
+transfers.
 """
 
 from __future__ import annotations
@@ -59,8 +63,9 @@ import torch
 import torch.distributed as dist
 
 from cuking_tpu_torch.models.king import DEFAULT_MAX_RESULTS, ResultSet
-from cuking_tpu_torch.ops.compaction import HitBuffer, compact_hits
-from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
+from cuking_tpu_torch.ops.compaction import HitBuffer
+from cuking_tpu_torch.ops.king_emit import emit_hits
+from cuking_tpu_torch.ops.king_math import KingCounts
 from cuking_tpu_torch.utils.status import InvalidArgumentError, ResourceExhaustedError
 
 AXIS = "samples"  # the name of the mesh's one axis, as in the TPU package
@@ -200,23 +205,15 @@ def _sub_counts(kernel, indexed_kernel, planes_i, i_off, ni, planes_j, j_off, nj
     return kernel(_rows(planes_i, i_off, ni), _rows(planes_j, j_off, nj), tri)
 
 
-def _emit(hits: HitBuffer, counts: KingCounts, threshold: torch.Tensor,
+def _emit(hits: HitBuffer, counts: KingCounts, threshold: float,
           gi_base: int, gj_base: int, i_limit: int, j_limit: int,
           same: bool = False) -> None:
     """Epilogue + threshold + compaction of one sub-tile.  ``same`` marks a
     sub-tile on the global diagonal (strict i < j, cuking.cu:199).  KING is
     pair-symmetric, so a pair computed with the higher block resident still
     emits (min, max)."""
-    res = king_from_counts(counts)
-    ni, nj = res.kin.shape
-    gi = gi_base + torch.arange(ni, device=res.kin.device)
-    gj = gj_base + torch.arange(nj, device=res.kin.device)
-    mask = (gi[:, None] < i_limit) & (gj[None, :] < j_limit) & (res.kin > threshold)
-    if same:
-        mask &= gi[:, None] < gj[None, :]
-    rows = compact_hits(mask, gi_base, gj_base, res)
-    rows[:2] = rows[:2].sort(dim=0).values
-    hits.append(rows)
+    emit_hits(counts, hits, gi_base, gj_base, i_limit, j_limit, threshold,
+              strict=same, sym=True)
 
 
 def _rotate(bufs: dict, mesh: RingMesh) -> dict:
@@ -245,7 +242,7 @@ def _rotate(bufs: dict, mesh: RingMesh) -> dict:
 def _finish(hits: dict, mesh: RingMesh) -> RingOutput:
     counts = np.zeros(mesh.size, np.int64)
     for p, h in hits.items():
-        counts[p] = h.count
+        counts[p] = int(h.count)  # the position's one read of its count
     return RingOutput(
         hits=tuple(hits[p].buf for p in mesh.local_positions),
         counts=mesh.all_reduce(counts),
@@ -265,7 +262,7 @@ def _check_blocks(blocks, mesh: RingMesh) -> None:
 
 def _ring_fn(
     blocks: list,
-    threshold: torch.Tensor,
+    threshold: float,
     mesh: RingMesh,
     *,
     kernel: Callable,
@@ -343,7 +340,7 @@ def _ring_fn(
 def _rect_ring_fn(
     blocks_i: list,
     blocks_j: list,
-    threshold: torch.Tensor,
+    threshold: float,
     mesh: RingMesh,
     *,
     kernel: Callable,
@@ -474,11 +471,10 @@ def all_pairs_presharded(
     _check_blocks(blocks, mesh)
     nd = blocks[0].shape[1]
     p = _choose_sub_panel(nd, sub_panel, row_multiple) if sub_panel else None
-    threshold = torch.tensor(kin_threshold, dtype=torch.float32)
 
     def run(capacity: int) -> RingOutput:
         return _ring_fn(
-            blocks, threshold, mesh, kernel=kernel, num_samples=num_samples,
+            blocks, kin_threshold, mesh, kernel=kernel, num_samples=num_samples,
             capacity=capacity, sub_panel=p, row_offset=row_offset,
             row_multiple=row_multiple, indexed_kernel=indexed_kernel,
         )
@@ -569,11 +565,10 @@ def rect_pairs_presharded(
     nd_i, nd_j = blocks_i[0].shape[1], blocks_j[0].shape[1]
     p_i = _choose_sub_panel(nd_i, sub_panel, row_multiple) if sub_panel else None
     p_j = _choose_sub_panel(nd_j, sub_panel, row_multiple) if sub_panel else None
-    threshold = torch.tensor(kin_threshold, dtype=torch.float32)
 
     def run(capacity: int) -> RingOutput:
         return _rect_ring_fn(
-            blocks_i, blocks_j, threshold, mesh, kernel=kernel,
+            blocks_i, blocks_j, kin_threshold, mesh, kernel=kernel,
             i_offset=i_offset, i_count=i_count, j_offset=j_offset,
             j_count=j_count, capacity=capacity, sub_panel_i=p_i,
             sub_panel_j=p_j, indexed_kernel=indexed_kernel,
@@ -654,16 +649,11 @@ def ring_output_local_resultset(
     ``max_results`` bound are checked against the all-reduced counts, so
     every rank raises together."""
     _check_overflow(ring_global_counts(out), out.capacity_per_device, max_results)
-    parts = []
-    for p, buf in zip(out.positions, out.hits):
-        count = int(out.counts[p])
-        if count == 0:
-            continue
-        arr = buf[:, :count].cpu().numpy()
-        parts.append(ResultSet(
-            i_idx=arr[0], j_idx=arr[1], kin=arr[2].view(np.float32),
-            ibs0=arr[3], ibs1=arr[4], ibs2=arr[5],
-        ))
+    parts = [
+        ResultSet.from_rows(buf[:, : int(out.counts[p])].cpu().numpy())
+        for p, buf in zip(out.positions, out.hits)
+        if out.counts[p]
+    ]
     return ResultSet.concat_and_sort(parts)
 
 

@@ -82,12 +82,13 @@ def shard_plane_bytes(
 
 def sweep_buffer_bytes(config) -> int:
     """Device bytes for the engine sweep beyond the planes: the [6, capacity]
-    int32 result buffer at its worst capacity (max_results), counted twice
-    because growing it copies the old buffer into the new one, plus one
-    step's transients (``TRANSIENT_BYTES_PER_PAIR`` per pair of the panel)."""
+    int32 result buffer at its worst capacity (max_results, the largest the
+    overflow re-run can ask for; the re-run frees the full buffer first),
+    plus one step's transients (``TRANSIENT_BYTES_PER_PAIR`` per pair of the
+    panel)."""
     per_slot = 6 * 4  # i/j idx i32, kin f32, ibs0/1/2 i32
     worst_capacity = max(config.resolved_result_capacity(), config.max_results)
-    result_buffer = 2 * worst_capacity * per_slot
+    result_buffer = worst_capacity * per_slot
     transients = TRANSIENT_BYTES_PER_PAIR * config.panel * config.panel
     return result_buffer + transients
 

@@ -1,8 +1,9 @@
 """Port of ``cuking_tpu/utils/synthetic.py`` (a copy; numpy only).
 
-Synthetic genotype data for tests and benchmarks.  The packed-plane
-generators at the end (``random_planes``, ``edge_planes``) are the port's
-own: they write het/hom words directly, without genotypes in between.
+Synthetic genotype data for tests and benchmarks.  The generators at the
+end (``random_planes``, ``edge_planes``, ``random_counters``) are the
+port's own: they write het/hom words, or KING counters, directly, without
+genotypes in between.
 
 The reference has no test fixtures at all (SURVEY.md §4); this generator
 produces dense genotype matrices with realistic allele-frequency structure,
@@ -114,3 +115,25 @@ def edge_planes(rows: int, layout, rng) -> np.ndarray:
                                       (pad, ones), (sign, pad), (pad, sign)]):
         planes[0, row], planes[1, row] = het, hom
     return planes
+
+
+def random_counters(ni: int, nj: int, rng, ties=()) -> np.ndarray:
+    """[6, ni, nj] int32 KING counters (both_het, het_i, het_j,
+    opposing_hom, concordant_hom, shared_sites) that a panel pair could give
+    (both_het <= min(het_i, het_j)), with the emit step's edge cases: row 1
+    and column 2 have no hets, so their kin is -inf, or NaN (0/0) where
+    opposing_hom is 0 too (every other pair of row 1 and, at column 2, the
+    rest).  Every pair of ``ties`` (``(li, lj)`` tuples) gets the same
+    counters, with a finite kin, so a threshold set to that kin ties them."""
+    hi = rng.integers(0, 60, (ni, nj))
+    hj = rng.integers(0, 60, (ni, nj))
+    hi[1], hj[:, 2] = 0, 0
+    bh = rng.integers(0, np.minimum(hi, hj) + 1)
+    oh = rng.integers(0, 25, (ni, nj))
+    oh[1, ::2] = 0
+    ch = rng.integers(0, 900, (ni, nj))
+    shared = bh + oh + ch + rng.integers(0, 300, (ni, nj))
+    counters = np.stack([bh, hi, hj, oh, ch, shared]).astype(np.int32)
+    for li, lj in ties:
+        counters[:, li, lj] = (7, 30, 40, 3, 500, 700)
+    return counters

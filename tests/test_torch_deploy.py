@@ -86,7 +86,8 @@ def test_cloudbuild_builds_the_port_image():
 def _point_at(monkeypatch, root: str) -> None:
     """Aims king_cuda's paths at a copy of the package under ``root``."""
     monkeypatch.setattr(king_cuda, "CSRC", os.path.join(root, "csrc"))
-    monkeypatch.setattr(king_cuda, "SOURCE", os.path.join(root, "csrc", "king_counts.cu"))
+    monkeypatch.setattr(king_cuda, "SOURCES", tuple(
+        os.path.join(root, "csrc", os.path.basename(src)) for src in king_cuda.SOURCES))
     monkeypatch.setattr(king_cuda, "BUILD_DIR", os.path.join(root, "_build"))
     monkeypatch.setattr(king_cuda, "LIB_PATH", os.path.join(root, "_build", "libking_counts.so"))
     monkeypatch.setattr(king_cuda, "DIGEST_PATH",
@@ -120,6 +121,7 @@ def test_prebuilt_library_loads_without_nvcc_after_copy(tmp_path, monkeypatch):
     assert not king_cuda.library_is_current()
     assert king_cuda._compile_if_stale() == "ptxas info"
     assert len(calls) == 1 and calls[0][1:len(king_cuda.NVCC_FLAGS) + 1] == king_cuda.NVCC_FLAGS
+    assert calls[0][-len(king_cuda.SOURCES):] == list(king_cuda.SOURCES)
     assert king_cuda.library_is_current()
 
     # COPY: fresh files, the sources an hour newer than the library.
@@ -138,13 +140,14 @@ def test_prebuilt_library_loads_without_nvcc_after_copy(tmp_path, monkeypatch):
     def fake_cdll(path):
         loaded.append(path)
         return types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
-            king_cuda.ENTRY, king_cuda.POPC_ENTRY)})
+            king_cuda.ENTRY, king_cuda.POPC_ENTRY, king_cuda.EMIT_ENTRY)})
 
     monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
     monkeypatch.setattr(king_cuda, "_lib", None)
     assert king_cuda.build() == ""
     assert loaded == [str(lib)]
     assert getattr(king_cuda._lib, king_cuda.ENTRY).restype is ctypes.c_int
+    assert getattr(king_cuda._lib, king_cuda.EMIT_ENTRY).restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("change", ["source", "new_file", "flags", "no_digest", "no_library"])

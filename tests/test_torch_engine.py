@@ -2,7 +2,10 @@
 KingEngine running its Pallas kernel in interpret mode (as
 tests/test_engine.py runs it): identical ResultSets, kin compared as uint32
 bits, for every shard of split factors 1 and 2 at two thresholds, through
-result-buffer growth, and with the same max_results overflow error."""
+the result buffer's overflow re-run, and with the same max_results overflow
+error."""
+
+import io
 
 import numpy as np
 import pytest
@@ -11,10 +14,12 @@ from cuking_tpu.models.king import KingConfig as JaxConfig
 from cuking_tpu.models.king import KingEngine as JaxEngine
 from cuking_tpu.parallel.submatrix import Submatrix as JaxSubmatrix
 from cuking_tpu.utils.status import ResourceExhaustedError as JaxResourceExhausted
+from cuking_tpu.utils.stopwatch import StageLogger as JaxStageLogger
 from cuking_tpu_torch.models.king import KingConfig, KingEngine, resolve_kernel_name
 from cuking_tpu_torch.parallel.submatrix import Submatrix
 from cuking_tpu_torch.utils.hbm import check_engine_fit
 from cuking_tpu_torch.utils.status import InvalidArgumentError, ResourceExhaustedError
+from cuking_tpu_torch.utils.stopwatch import StageLogger
 from cuking_tpu_torch.utils.synthetic import random_genotypes
 
 N, SITES = 48, 700
@@ -49,15 +54,25 @@ def test_engine_matches_jax_pallas(genotypes, split_factor, shard_index, thresho
     _assert_same(got, ref)
 
 
+def _overflow_lines(log: str) -> list[str]:
+    return [ln for ln in log.splitlines() if "Result buffer overflowed" in ln]
+
+
 def test_result_buffer_growth_matches_jax(genotypes):
-    """A 3-slot initial buffer grows in place to hold all 1,128 pairs."""
+    """A 3-slot buffer overflows; the exact count re-runs the sweep once at
+    2,048 slots, which hold all 1,128 pairs, with JAX's log line."""
     common = dict(panel=16, kin_threshold=-2.0, max_results=N * N,
                   result_capacity=3)
-    ref = JaxEngine.from_genotypes(genotypes, JaxConfig(**common, **JAX_KW)).run()
+    jax_engine = JaxEngine.from_genotypes(genotypes, JaxConfig(**common, **JAX_KW))
+    jax_engine.logger = JaxStageLogger(stream=(jax_log := io.StringIO()))
+    ref = jax_engine.run()
     engine = KingEngine.from_genotypes(genotypes, KingConfig(**common, device="cpu"))
+    engine.logger = StageLogger(stream=(log := io.StringIO()))
     got = engine.run()
     assert len(got) == N * (N - 1) // 2
     _assert_same(got, ref)
+    assert _overflow_lines(log.getvalue()) == _overflow_lines(jax_log.getvalue()) == [
+        "Result buffer overflowed (1128 hits > 3 slots); re-running at capacity 2048."]
 
 
 def test_max_results_overflow_matches_jax(genotypes):
@@ -101,10 +116,10 @@ def test_engine_fit_names_the_split_factor():
     sub = Submatrix.create(32_768, 1, 0)
     cfg = KingConfig(device="cpu")
     check_engine_fit(32_768, 3128, sub, cfg, 1, bytes_limit=4 << 30)
-    # Planes 782 MiB + sweep buffers 736 MiB (the 2 x 240 MiB result buffer
-    # and 256 MiB of step transients) leave 164 MiB for planes: split 11's
-    # off-diagonal shard stores two blocks of 2,979 rows, 3,072 padded.
-    with pytest.raises(InvalidArgumentError, match="split_factor to at least 11"):
+    # Planes 782 MiB + sweep buffers 496 MiB (the 240 MiB result buffer and
+    # 256 MiB of step transients) leave 404 MiB for planes: split 4's
+    # off-diagonal shard stores two blocks of 8,192 rows.
+    with pytest.raises(InvalidArgumentError, match="split_factor to at least 4"):
         check_engine_fit(32_768, 3128, sub, cfg, 1, bytes_limit=900 << 20)
     with pytest.raises(InvalidArgumentError, match="no --split_factor"):
         check_engine_fit(32_768, 3128, sub, cfg, 1, bytes_limit=100 << 20)

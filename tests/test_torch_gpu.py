@@ -1,5 +1,6 @@
 """The CUDA count kernel against its plain PyTorch versions and its
-AND + popcount yardstick, on the card.
+AND + popcount yardstick, and the emit kernel against its plain version, on
+the card.
 
 Marked ``gpu``: a CUDA kernel has no CPU mode, so these skip where
 ``torch.cuda.is_available()`` is false.  This file imports no jax, so it also
@@ -17,8 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from cuking_tpu_torch.ops import king_cuda
+from cuking_tpu_torch.models import king as king_model
+from cuking_tpu_torch.ops import king_cuda, king_emit
 from cuking_tpu_torch.ops.bitset import PlaneLayout, pack_genotypes
+from cuking_tpu_torch.ops.compaction import HitBuffer
 from cuking_tpu_torch.ops.king_cuda import (
     panel_counts_cuda,
     panel_counts_cuda_indexed,
@@ -26,13 +29,20 @@ from cuking_tpu_torch.ops.king_cuda import (
     panel_counts_popc_indexed,
 )
 from cuking_tpu_torch.models.king import KingConfig, KingEngine
+from cuking_tpu_torch.ops.king_emit import emit_hits, emit_hits_plain
+from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 from cuking_tpu_torch.parallel.ring import (
     RingMesh,
     all_pairs_sharded,
     ring_output_to_resultset,
 )
-from cuking_tpu_torch.utils.synthetic import edge_planes, random_genotypes
+from cuking_tpu_torch.utils.synthetic import (
+    edge_planes,
+    random_counters,
+    random_genotypes,
+    random_planes,
+)
 
 
 @pytest.fixture
@@ -107,14 +117,18 @@ def test_every_card_launches_the_kernel_and_runs_the_ring(cuda_device):
         for name, g, e in zip(got._fields, got, exp):
             assert g.device == planes.device, (k, name)
             assert torch.equal(g, e), (k, name)
+        hits = {who: HitBuffer(1 << 15, planes.device) for who in ("kernel", "plain")}
+        emit_hits(got, hits["kernel"], 0, 130, 130, 260, -2.0, True, True)
+        emit_hits_plain(got, hits["plain"], 0, 130, 130, 260, -2.0, True, True)
+        assert _sorted_rows(hits["kernel"]) == _sorted_rows(hits["plain"]), k
     g = random_genotypes(300, 3_000, missing_rate=0.05, seed=count, num_related_pairs=4)
-    before = king_cuda.launches
+    before = king_cuda.launches, king_emit.emit_launches
     out = all_pairs_sharded(
         pack_genotypes(g, PlaneLayout.create(3_000)), 300,
         RingMesh([f"cuda:{k}" for k in range(count)]), panel_counts_cuda,
         kin_threshold=-2.0, capacity_per_device=1 << 16,
         indexed_kernel=panel_counts_cuda_indexed)
-    assert king_cuda.launches > before
+    assert king_cuda.launches > before[0] and king_emit.emit_launches > before[1]
     got = ring_output_to_resultset(out)
     ref = KingEngine.from_genotypes(
         g, KingConfig(kernel="cuda", device="cuda", panel=128, kin_threshold=-2.0)).run()
@@ -122,6 +136,76 @@ def test_every_card_launches_the_kernel_and_runs_the_ring(cuda_device):
     for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
         assert np.array_equal(getattr(got, f), getattr(ref, f)), f
     assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
+
+
+def _sorted_rows(hits: HitBuffer) -> list:
+    total = int(hits.count)
+    return sorted(map(tuple, hits.rows(total).T.tolist()))
+
+
+TIES = ((2, 20), (3, 25), (4, 28))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("source", ["count kernel", "random counters"])
+@pytest.mark.parametrize("strict,sym", [(True, False), (True, True), (False, True), (False, False)])
+@pytest.mark.parametrize("threshold", ["tie", -2.0])
+@pytest.mark.parametrize("capacity", [1 << 20, 777])
+def test_emit_kernel_matches_plain_version(cuda_device, source, strict, sym, threshold,
+                                           capacity):
+    """The emit kernel and its plain version on the same counters: the same
+    exact count and the same rows (kin bits included); past ``capacity``
+    the kernel keeps ``capacity`` of the plain version's rows.  The counters
+    come from the count kernel (a 300 x 450 block of 3,100 sites, limits
+    inside it) or are random, with NaN/-inf rows and three pairs whose kin
+    equals the threshold."""
+    rng = np.random.default_rng(7)
+    if source == "count kernel":
+        planes = torch.from_numpy(
+            random_planes(2000, PlaneLayout.create(3_100), rng).view(np.int32)).to(cuda_device)
+        counts = panel_counts_cuda_indexed(planes, 0, 1000, 0, 300, panel_j=450)
+        counts = KingCounts(*(c.clone() for c in counts))  # separate: stacked
+        gi, gj, il, jl = 990, 1000, 1280, 1430
+    else:
+        counts = KingCounts(*torch.from_numpy(
+            random_counters(300, 450, rng, TIES)).to(cuda_device).unbind(0))
+        gi, gj, il, jl = 0, 0, 300, 450
+    if threshold == "tie":
+        threshold = float(king_from_counts(counts).kin[TIES[0]])
+    got, ref = HitBuffer(capacity, cuda_device), HitBuffer(1 << 20, cuda_device)
+    before = king_emit.emit_launches
+    emit_hits(counts, got, gi, gj, il, jl, threshold, strict, sym)
+    assert king_emit.emit_launches == before + 1
+    emit_hits_plain(counts, ref, gi, gj, il, jl, threshold, strict, sym)
+    total = int(got.count)
+    assert total == int(ref.count) > 0
+    want = _sorted_rows(ref)
+    if total <= capacity:
+        assert _sorted_rows(got) == want
+    else:
+        kept = _sorted_rows(got)
+        assert len(kept) == capacity and set(kept) <= set(want)
+
+
+@pytest.mark.gpu
+def test_engine_sweep_never_waits_for_the_device(cuda_device, monkeypatch):
+    """The engine's step loop under ``set_sync_debug_mode("error")``, with
+    a count copy every 2 steps: no call in it waits for the device, and the
+    hits are those of ``run()``."""
+    g = random_genotypes(600, 3_000, missing_rate=0.05, seed=3, num_related_pairs=4)
+    engine = KingEngine.from_genotypes(g, KingConfig(kernel="cuda", device="cuda", panel=128))
+    rs = engine.run()
+    monkeypatch.setattr(king_model, "LIMIT_CHECK_STEPS", 2)
+    before = king_cuda.launches, king_emit.emit_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hits = engine.sweep(1 << 10)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    steps = len(engine._panel_pair_params())
+    assert (king_cuda.launches - before[0], king_emit.emit_launches - before[1]) == (steps,) * 2
+    assert int(hits.count) == len(rs) >= 4
 
 
 @pytest.mark.gpu

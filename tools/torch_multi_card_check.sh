@@ -12,6 +12,11 @@
 # 3. The CLI at 1,000 x 10,000: --use_mesh with its default devices (one
 #    position per card) and one CLI per card with --distributed (NCCL),
 #    each against --device cuda on one card.
+# 4. chip_smoke.py's cell A (32,768 x 100,000, threshold 0.0884, 64 planted
+#    duplicates) through a ring of 4 positions, all on cuda:0 and one per
+#    card, in turns (one card, all cards, all cards, one card): the host
+#    clock of each sweep, ending when every card is done, and its rows
+#    against the engine's on cuda:0.
 set -u
 cd "$(dirname "$0")/.."
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
@@ -66,4 +71,31 @@ with tempfile.TemporaryDirectory() as tmp:
         print(" | ".join(out.strip().splitlines()[-2:]))
     print(f"--distributed over {world} cards (NCCL): exit codes {rcs}, == one card:",
           all(rc == 0 for rc in rcs) and cs._rows(f"{tmp}/dist") == one)
+PY
+timeout 900 python - <<'PY'
+import time
+
+import torch
+
+import chip_smoke as cs
+from cuking_tpu_torch.parallel.ring import (
+    RingMesh, _pad_and_shard, all_pairs_presharded, ring_output_to_resultset)
+
+card = cs.phase_env()
+_, storage, engine_rs = cs.phase_engine(card)
+n = storage.submatrix.num_rows
+cards = torch.cuda.device_count()
+for devices in (["cuda:0"] * 4, [f"cuda:{k % cards}" for k in range(4)]) * 2:
+    mesh = RingMesh(devices)
+    blocks, _ = _pad_and_shard(storage.planes, n, mesh, 1)
+    for k in range(cards):
+        torch.cuda.synchronize(k)
+    t = time.perf_counter()
+    out = all_pairs_presharded(blocks, n, **cs.ring_kw(mesh=mesh, kin_threshold=0.0884))
+    for k in range(cards):
+        torch.cuda.synchronize(k)
+    sweep_s = time.perf_counter() - t
+    cs.same_results(ring_output_to_resultset(out), engine_rs, f"ring on {devices}")
+    print(f"ring of 4 positions on {','.join(devices)}: {sweep_s:.3f} s, "
+          f"{n * (n - 1) // 2 / sweep_s:,.0f} pairs/s, the engine's rows ({card})", flush=True)
 PY
