@@ -397,11 +397,13 @@ PEAK_FP32_OPS = 67e12  # non-tensor float32 (NVIDIA's H100 SXM data sheet)
 
 
 def emit_bound(pairs: int, hits: int) -> tuple[float, str]:
-    """The least time (ms) one emit launch could take, and what bounds it:
-    the six int32 counters of every pair read once and 24 B written per
-    hit, against ~10 operations per pair (the kin expression and the mask)
-    at the card's non-tensor float32 rate."""
-    t_bytes = (24 * pairs + 24 * hits) / PEAK_BYTES
+    """The least time (ms) one emit launch could take over ``pairs``
+    candidate pairs, and what bounds it: the bytes the function needs (the
+    four kin counters of every candidate, 16 B; for each hit the other two
+    counters, 8 B, and its row written, 24 B), against ~10 operations per
+    pair (the kin expression and the mask) at the card's non-tensor float32
+    rate."""
+    t_bytes = (16 * pairs + 32 * hits) / PEAK_BYTES
     t_ops = 10 * pairs / PEAK_FP32_OPS
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 

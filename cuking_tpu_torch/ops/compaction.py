@@ -82,7 +82,10 @@ class HitBuffer:
 
     def snapshot(self) -> None:
         """Starts a copy of the count into pinned host memory and returns
-        without waiting for it."""
+        without waiting for it.  A check on these copies bounds wasted work
+        only while the device keeps pace with the host: when the host has
+        queued a whole sweep before any copy lands, only the final read of
+        ``count`` can raise."""
         host = torch.empty((), dtype=torch.int64, pin_memory=self.count.is_cuda)
         host.copy_(self.count, non_blocking=True)
         event = None

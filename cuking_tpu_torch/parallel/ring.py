@@ -49,9 +49,11 @@ What replaces the TPU package's machinery:
 
 Between rotations nothing waits for a device: on a card a sub-tile is two
 kernel launches on its position's current stream, so positions on separate
-GPUs of one process run side by side.  A rotation between local positions
-is a device copy ordered on the streams; one between ranks waits for its
-transfers.
+GPUs of one process are expected to run side by side; that is unverified
+until ``tools/torch_multi_card_check.sh`` has run on several cards.  A
+rotation between local positions is a device copy ordered on the streams
+(PyTorch's copy between devices waits on both devices' current streams);
+one between ranks waits for its transfers.
 """
 
 from __future__ import annotations
