@@ -37,7 +37,11 @@ Phases (any failure exits nonzero):
    planted duplicate pairs; exactly those must come out, with kin == 0.5.
    Kernel launch counts are read from this run.  One more sweep's step loop
    runs under ``torch.cuda.set_sync_debug_mode("error")``: a step that
-   waits for the device fails it.
+   waits for the device fails it, and its deliberate waits for the count
+   copy ``LIMIT_CHECK_WINDOW`` copies back (528 // 64 - 4 = 4) are counted.
+3b. The early stop: the same planes at threshold -2.0, so the hits pass the
+   default ``max_results`` within the first 64 steps; the sweep must raise
+   ResourceExhausted with at most (4 + 1) x 64 of its 528 steps queued.
 4. Keep-all parity at 4,096 x 100,000 (8,386,560 hits, past the default
    2^20 slots, so the sweep re-runs at 2^23): the cuda engine, the matmul
    engine and the cuda engine with the plain emit step give identical
@@ -51,8 +55,11 @@ Phases (any failure exits nonzero):
    scaling figure.
 7. Keep-all rings at 4,096 x 100,000 (phase 4's planes): a 3-position ring
    (odd D, no wrap step), the three shards of split 2 on a 2-position mesh
-   (offset triangle and rectangular ring), and a forced auto-retry from
-   ``capacity_per_device=1<<16``; each must equal phase 4's cuda engine.
+   (offset triangle and rectangular ring), and forced auto-retries from
+   ``capacity_per_device`` 2^16 and 2^21; each must equal phase 4's cuda
+   engine.  Each retry's peak device memory must stay inside
+   ``check_ring_fit``'s model, and the retry from 2^21 must hold one set
+   of hit buffers per position: the first run's are freed first.
 8. The CLI on the mesh, on phase 5's input: ``--use_mesh --device
    cuda:0,cuda:0`` at split 1 and split 2 merged, and ``--distributed`` in a
    subprocess (a world of 1 with NCCL, 4 positions on cuda:0); both must
@@ -75,6 +82,10 @@ Phases (any failure exits nonzero):
     imports the CLI and makes the CUDA context is timed once, as the part of
     a task's wall time that is start-up.  These are smoke-size tasks (one
     kernel launch each), not a deployment's shard.
+11. BASELINE-scale parity: ``tools/torch_baseline_parity.run_parity`` at
+    1,000 x 100,000 through the CLI on cuda: every finite-kin pair bit-exact
+    against the numpy oracle, the 0.0884-thresholded run, and the merged
+    ten shards of split 4; each stage's wall time is printed.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
@@ -528,29 +539,14 @@ def phase_emit(card: str) -> dict:
 def phase_engine(card: str):
     import torch
 
-    from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
-    from cuking_tpu_torch.ops.bitset import PlaneLayout
-    from cuking_tpu_torch.parallel.submatrix import Submatrix
+    from cuking_tpu_torch.models import king as king_model
+    from cuking_tpu_torch.models.king import KingConfig, KingEngine
     from cuking_tpu_torch.utils.stopwatch import StageLogger
-    from cuking_tpu_torch.utils.synthetic import fill_random_planes
+    from tools.torch_sweep_ab import cell_a_storage
 
-    n = 32_768
-    rng = np.random.default_rng(SEED + 1)
-    layout = PlaneLayout.create(SITES)
-    storage = PanelStorage(layout, Submatrix.create(n, 1, 0), 1024)
-    fill_random_planes(storage.planes, layout, rng)
-    # 64 planted exact duplicates: 32 inside one panel (diagonal panel
-    # pairs), 32 across panels (off-diagonal); every sample in one pair only.
-    planted = []
-    for k in range(32):
-        planted.append((k * 1024 + 10 + k, k * 1024 + 500 + k))
-    for k in range(32, 64):
-        planted.append(((k - 32) * 1024 + 700 + k, ((k - 25) % 32) * 1024 + 900 + k))
-    for a, b in planted:
-        storage.planes[:, b] = storage.planes[:, a]
-    storage.mark_mutated()
-    expected = {(min(a, b), max(a, b)): defined_sites(storage.planes, a)
-                for a, b in planted}
+    storage, planted = cell_a_storage()
+    n = storage.submatrix.num_rows
+    expected = {(a, b): defined_sites(storage.planes, a) for a, b in planted}
 
     cfg = KingConfig(kernel="cuda", device="cuda")
     engine = KingEngine(storage, cfg, logger=StageLogger(stream=sys.stderr))
@@ -580,7 +576,9 @@ def phase_engine(card: str):
     say(f"phase 3: sweep {sweep_s:.3f} s, {pairs / sweep_s:,.0f} pairs/s, "
         f"peak device memory {peak / 2**20:.0f} MiB ({card})")
 
-    # The step loop again, where any call that waits for the device raises.
+    # The step loop again, where any call that waits for the device raises;
+    # the deliberate waits for the count copies a window back
+    # (HitBuffer.wait_oldest, on a CUDA event) are counted.
     torch.cuda.synchronize()
     t = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")
@@ -591,12 +589,55 @@ def phase_engine(card: str):
         torch.cuda.set_sync_debug_mode("default")
     check(int(hits.count) == len(planted), f"the checked sweep counted {int(hits.count)} hits")
     torch.cuda.synchronize()
+    waits = steps // king_model.LIMIT_CHECK_STEPS - king_model.LIMIT_CHECK_WINDOW
+    check(hits.waits == waits, f"the sweep waited {hits.waits} times, expected {waits}")
     say(f"phase 3: the step loop under set_sync_debug_mode('error'): no sync in "
-        f"{steps} steps; the host queued them in {enqueue_s:.3f} s, the device "
-        f"finished {time.perf_counter() - t:.3f} s after the start ({card})")
+        f"{steps} steps but its {hits.waits} deliberate waits for the count copy "
+        f"{king_model.LIMIT_CHECK_WINDOW} copies back; the host queued them in "
+        f"{enqueue_s:.3f} s, the device finished {time.perf_counter() - t:.3f} s after "
+        f"the start ({card})")
     del hits
     profile_sweep(engine, card)
     return launches, storage, rs
+
+
+def phase_early_stop(card: str, storage) -> dict:
+    """Cell A's planes at threshold -2.0: every step's hits pass the default
+    max_results within the first 64 steps, so the sweep must raise the JAX
+    engine's error with at most (LIMIT_CHECK_WINDOW + 1) x LIMIT_CHECK_STEPS
+    steps queued."""
+    import torch
+
+    from cuking_tpu_torch.models import king as king_model
+    from cuking_tpu_torch.models.king import KingConfig, KingEngine
+    from cuking_tpu_torch.utils.status import ResourceExhaustedError
+    from cuking_tpu_torch.utils.stopwatch import StageLogger
+
+    engine = KingEngine(storage, KingConfig(kernel="cuda", device="cuda", kin_threshold=-2.0),
+                        logger=StageLogger(enabled=False))
+    engine.planes_dev
+    steps = len(engine._panel_pair_params())
+    bound = (king_model.LIMIT_CHECK_WINDOW + 1) * king_model.LIMIT_CHECK_STEPS
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    try:
+        engine.run()
+        check(False, "the keep-all sweep of cell A did not pass max_results")
+    except ResourceExhaustedError as e:
+        error_s = time.perf_counter() - t
+        check("--max_results" in str(e), f"the error is not the engine's: {e}")
+    launches = read_launches("the overflowing engine")
+    torch.cuda.synchronize()
+    drained_s = time.perf_counter() - t
+    check(launches["king_emit"] <= bound < steps,
+          f"{launches['king_emit']} of {steps} steps queued before the error, more than "
+          f"{bound}")
+    say(f"phase 3b: keep-all sweep of cell A past max_results: ResourceExhausted with "
+        f"{launches['king_emit']} of {steps} steps queued (at most {bound}), "
+        f"{error_s:.3f} s after the start; the device ended {drained_s:.3f} s after it "
+        f"({card})")
+    return launches
 
 
 def profile_sweep(engine, card: str) -> None:
@@ -822,17 +863,56 @@ def phase_rings_keep_all(card: str, storage, engine_rs) -> dict:
     merged = ResultSet.concat_and_sort([ring_output_to_resultset(o) for o in outs])
     same_results(merged, engine_rs, "split-2 shard rings merged")
 
-    out, t_retry = timed("retry ring", lambda: all_pairs_sharded(
-        storage.planes, n, **ring_kw(mesh=mesh2, kin_threshold=-2.0,
-                                     capacity_per_device=1 << 16)))
-    check(out.capacity_per_device > 1 << 16, "the ring did not retry past capacity 2^16")
-    same_results(ring_output_to_resultset(out), engine_rs, "auto-retry ring")
+    retries = []
+    for first in (1 << 16, 1 << 21):
+        # The planes are uploaded inside the call, so its peak holds them,
+        # the hit buffers and a sub-tile's transients.
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out, t_retry = timed(f"retry ring from {first}", lambda: all_pairs_sharded(
+            storage.planes, n, **ring_kw(mesh=mesh2, kin_threshold=-2.0,
+                                         capacity_per_device=first)))
+        peak = torch.cuda.max_memory_allocated() - base
+        check(out.capacity_per_device > first, f"the ring did not retry past capacity {first}")
+        same_results(ring_output_to_resultset(out), engine_rs, f"auto-retry ring from {first}")
+        retries.append(retry_memory(storage, mesh2, first, out.capacity_per_device, peak,
+                                    t_retry))
+        del out
     say(f"phase 7: keep-all {n} x {SITES} ({len(engine_rs)} hits), each equal to the "
         f"cuda engine: 3-position ring {t3:.3f} s; split-2 shards on 2 positions "
-        f"{t_split:.3f} s; retry from 2^16 to {out.capacity_per_device} slots "
-        f"{t_retry:.3f} s (sweeps incl. compaction into the hit buffers, excl. the copy "
-        f"to the host and the sort; {card}); {launches} kernel launches")
+        f"{t_split:.3f} s; " + "; ".join(retries) + f" (sweeps incl. compaction into the "
+        f"hit buffers, excl. the copy to the host and the sort; {card}); {launches} "
+        "kernel launches")
     return launches
+
+
+def retry_memory(storage, mesh, first: int, retry: int, peak: int, seconds: float) -> str:
+    """Holds a forced ring retry's peak device memory to check_ring_fit's
+    model, and, when the first run's hit buffers outweigh two sub-tiles'
+    counters (the transients beside them), to one set of hit buffers per
+    position: the first set must be freed before the retry's is made."""
+    from cuking_tpu_torch.parallel.ring import DEFAULT_MAX_RESULTS
+    from cuking_tpu_torch.utils.hbm import ring_shard_bytes
+
+    n, d = storage.submatrix.num_rows, mesh.size
+    planes = storage.planes[:, :n].nbytes
+    # The retry is capped at the reference's default max_results when the
+    # caller gives none, so the model budgets that.
+    model = ring_shard_bytes(n, n, True, storage.layout.words, 1024, 1, d, first,
+                             DEFAULT_MAX_RESULTS, positions_per_device=d)
+    check(peak <= model, f"the retry from {first} peaked at {peak} B, over the model's "
+                         f"{model} B")
+    first_set, retry_set = d * first * 24, d * retry * 24
+    counters = 6 * 4 * 1024 * 1024  # one 1024 x 1024 sub-tile's int32 counters
+    if first_set > 2 * counters:
+        check(peak < planes + retry_set + first_set,
+              f"the retry from {first} peaked at {peak} B: the first run's {first_set} B "
+              "of hit buffers were alive beside the retry's")
+    return (f"retry from {first} to {retry} slots {seconds:.3f} s, peak device memory "
+            f"{peak / 2**20:.1f} MiB (planes {planes / 2**20:.1f}, hit buffers first "
+            f"{first_set / 2**20:.1f}, retry {retry_set / 2**20:.1f}; check_ring_fit's "
+            f"model {model / 2**20:.1f} MiB)")
 
 
 def _free_port() -> int:
@@ -1075,6 +1155,29 @@ def phase_fan_out(tmp: str, card: str) -> dict:
     return launches
 
 
+# Phase 11's cohort: the BASELINE config's 1,000 samples x 100,000 sites.
+PARITY_SAMPLES, PARITY_SITES = 1000, 100_000
+
+
+def phase_parity(card: str) -> dict:
+    from tools.torch_baseline_parity import run_parity
+
+    reset_launches()
+    t = time.perf_counter()
+    result = run_parity(PARITY_SAMPLES, PARITY_SITES, device="cuda",
+                        log=lambda line: say(f"phase 11: {line}"))
+    launches = read_launches("the baseline parity CLI runs")
+    check(result["ok"], f"baseline parity: rows differ from the oracle: "
+                        f"{result['differences']}")
+    say(f"phase 11: baseline parity {PARITY_SAMPLES} x {PARITY_SITES} through the CLI on "
+        f"cuda: {result['pairs_compared_bit_exact']:,} finite-kin pairs bit-exact against "
+        f"the numpy oracle ({result['nonfinite_pairs_excluded']:,} nonfinite excluded), "
+        f"{result['thresholded_pairs']} thresholded pairs, and the split-4 merge of "
+        f"{result['shards']} shards: differences {result['differences']}; "
+        f"{time.perf_counter() - t:.1f} s in all ({card}); {launches} kernel launches")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1095,6 +1198,7 @@ def main() -> int:
     popc_launches = king_cuda.popc_launches
     launches = {}
     launches["engine"], engine_storage, engine_rs = phase_engine(card)
+    launches["engine_early_stop"] = phase_early_stop(card, engine_storage)
     launches["engine_keep_all"], keep_storage, keep_rs = phase_keep_all(card)
     with tempfile.TemporaryDirectory() as tmp:
         launches["cli"], inp, split1 = phase_cli(tmp)
@@ -1104,6 +1208,7 @@ def main() -> int:
         launches["cli_mesh"] = phase_cli_mesh(tmp, inp, split1)
         launches["king"] = phase_king_popcount(card)
         launches["fan_out"] = phase_fan_out(tmp, card)
+    launches["baseline_parity"] = phase_parity(card)
     check(king_cuda.popc_launches == popc_launches,
           "the AND + popcount yardstick launched on the main path")
     # The emit kernel replaces no TPU kernel: the JAX package left the step

@@ -15,14 +15,18 @@ packed planes for one shard, in PyTorch.
   multiple with all-missing samples.
 * Results: hits go into ONE fixed-capacity device buffer whose int64 count
   stays exact past capacity (ops/compaction.py), the JAX sweep's result
-  model.  On a card the step loop reads nothing from the device: the
-  ``max_results`` check reads non-blocking copies of the count taken every
-  ``LIMIT_CHECK_STEPS`` steps, once they have landed, and raises
-  ResourceExhausted (cuking.cu:747-751) when one exceeds it.  After the
-  sweep the count is read once; a total in (capacity, max_results] re-runs
-  the sweep once at the next power of two, as the JAX engine does.  The host
-  fetches the buffer in one copy and sorts by (i, j, kin)
-  (cuking.cu:761-765), which also undoes the atomic slot order.
+  model.  The ``max_results`` check lags as the JAX engine's does: every
+  ``LIMIT_CHECK_STEPS`` steps a non-blocking copy of the count starts, and
+  once more than ``LIMIT_CHECK_WINDOW`` copies are pending the loop waits
+  for the oldest and raises ResourceExhausted (cuking.cu:747-751) when it
+  exceeds the limit.  While the host waits, the device still has that many
+  blocks of steps queued behind the copy, so it never idles on the wait,
+  and an overflowing sweep stops queuing within ``LIMIT_CHECK_WINDOW + 1``
+  blocks.  After the sweep the count is read once; a total in
+  (capacity, max_results] re-runs the sweep once at the next power of two,
+  as the JAX engine does.  The host fetches the buffer in one copy and
+  sorts by (i, j, kin) (cuking.cu:761-765), which also undoes the atomic
+  slot order.
 
 Kernels (``KingConfig.kernel``): ``cuda`` (the hand-written count kernel,
 ops/king_cuda.py), ``matmul`` (the plain PyTorch int8 product,
@@ -59,8 +63,11 @@ DEFAULT_MAX_RESULTS = 10 << 20  # cuking.cu:40-41
 DEFAULT_RESULT_CAPACITY = 1 << 20
 KERNELS = ("auto", "cuda", "matmul", "popcount")
 # Steps between the sweep's non-blocking copies of its hit count (the JAX
-# sweep checks max_results once per 64-step dispatch).
+# sweep checks max_results once per 64-step dispatch), and the copies that
+# may be pending before the sweep waits for the oldest (the JAX engine's
+# ``window`` of dispatches).
 LIMIT_CHECK_STEPS = 64
+LIMIT_CHECK_WINDOW = 4
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -354,10 +361,11 @@ class KingEngine:
     def sweep(self, capacity: int) -> HitBuffer:
         """Runs every panel-pair step into a fresh :class:`HitBuffer` of
         ``capacity`` slots and returns it.  A step is one count launch and
-        one emit launch; on a card nothing here waits for the device (the
-        caller reads ``count``).  Every ``LIMIT_CHECK_STEPS`` steps a copy of
-        the count starts, and ResourceExhausted is raised as soon as a copy
-        that has landed exceeds ``max_results``."""
+        one emit launch.  Every ``LIMIT_CHECK_STEPS`` steps a copy of the
+        count starts; once more than ``LIMIT_CHECK_WINDOW`` copies are
+        pending, the loop waits for the oldest (the only wait for the device
+        here; the caller reads the final ``count``) and raises
+        ResourceExhausted when it exceeds ``max_results``."""
         cfg = self.config
         planes = self.planes_dev
         hits = HitBuffer(capacity, self.device)
@@ -370,12 +378,13 @@ class KingEngine:
                       cfg.kin_threshold, strict=True, sym=False)
             if step % LIMIT_CHECK_STEPS == 0:
                 hits.snapshot()
-                _check_max_results(hits.latest_snapshot(), cfg.max_results)
+                if hits.pending > LIMIT_CHECK_WINDOW:
+                    _check_max_results(hits.wait_oldest(), cfg.max_results)
         return hits
 
 
-def _check_max_results(count: int | None, max_results: int) -> None:
-    if count is not None and count > max_results:
+def _check_max_results(count: int, max_results: int) -> None:
+    if count > max_results:
         raise ResourceExhaustedError(
             "Could not store all results: try increasing the "
             "--max_results parameter."

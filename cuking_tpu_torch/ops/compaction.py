@@ -6,9 +6,12 @@ device-resident result buffer — the analogue of the reference's
 :class:`HitBuffer` has the contract of the JAX package's
 ``accumulate_hits``: a fixed capacity, and a running hit count that stays
 exact past it.  The count is a device int64 tensor, so a sweep that appends
-through the emit kernel (``ops/king_emit.py``) reads nothing from the device
+through the emit kernel (``ops/king_emit.py``) need not read the device
 until it ends; callers decide overflow from the final count (the engine
-re-runs at a larger capacity, the ring all-reduces the counts first).
+re-runs at a larger capacity, the ring all-reduces the counts first).  To
+stop early, the engine copies the count into host memory every few steps
+(:meth:`HitBuffer.snapshot`) and waits only for a copy several snapshots
+old (:meth:`HitBuffer.wait_oldest`), with later steps queued behind it.
 
 :func:`compact_hits` and :meth:`HitBuffer.append` belong to the emit
 kernel's plain version: ``nonzero`` of a step's mask, a gather of the six
@@ -61,6 +64,7 @@ class HitBuffer:
         self.buf = torch.empty((6, capacity), dtype=torch.int32, device=device)
         self.count = torch.zeros((), dtype=torch.int64, device=device)
         self._snapshots: deque = deque()
+        self.waits = 0
 
     @property
     def capacity(self) -> int:
@@ -81,11 +85,8 @@ class HitBuffer:
         return self.buf[:, : min(total, self.capacity)].cpu().numpy()
 
     def snapshot(self) -> None:
-        """Starts a copy of the count into pinned host memory and returns
-        without waiting for it.  A check on these copies bounds wasted work
-        only while the device keeps pace with the host: when the host has
-        queued a whole sweep before any copy lands, only the final read of
-        ``count`` can raise."""
+        """Starts a copy of the count into pinned host memory, behind an
+        event, and returns without waiting for it."""
         host = torch.empty((), dtype=torch.int64, pin_memory=self.count.is_cuda)
         host.copy_(self.count, non_blocking=True)
         event = None
@@ -94,14 +95,17 @@ class HitBuffer:
             event.record(torch.cuda.current_stream(self.count.device))
         self._snapshots.append((host, event))
 
-    def latest_snapshot(self) -> int | None:
-        """The newest snapshot whose copy has completed, or None; older
-        snapshots are dropped.  Never waits for the device."""
-        latest = None
-        while self._snapshots:
-            host, event = self._snapshots[0]
-            if event is not None and not event.query():
-                break
-            self._snapshots.popleft()
-            latest = int(host)
-        return latest
+    @property
+    def pending(self) -> int:
+        """Snapshots taken and not yet read."""
+        return len(self._snapshots)
+
+    def wait_oldest(self) -> int:
+        """Waits for the oldest pending snapshot's copy to land and returns
+        it.  This is a deliberate wait for the device, counted in
+        ``waits``."""
+        host, event = self._snapshots.popleft()
+        if event is not None:
+            event.synchronize()
+        self.waits += 1
+        return int(host)

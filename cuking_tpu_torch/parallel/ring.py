@@ -496,15 +496,19 @@ def _run_with_retry(
     caller gave none, so an unbounded keep-everything run fails cleanly
     instead of allocating its overflow per position).  The retry capacity is
     the next power of two (≤ the global limit), as in the TPU package, where
-    capacity was a compile-cache key."""
+    capacity was a compile-cache key.  The first run's hit buffers are
+    freed before the retry allocates its own, so a position never holds two
+    sets (the one set ``utils/hbm.check_ring_fit`` budgets)."""
     out = run(capacity_per_device)
-    if auto_retry:
-        counts = ring_global_counts(out)
-        over = int(counts.max(initial=0))
-        limit = DEFAULT_MAX_RESULTS if max_results is None else max_results
-        if over > capacity_per_device and int(counts.sum()) <= limit:
-            bucket = 1 << (over - 1).bit_length()
-            out = run(min(bucket, limit))
+    if not auto_retry:
+        return out
+    counts = ring_global_counts(out)
+    over = int(counts.max(initial=0))
+    limit = DEFAULT_MAX_RESULTS if max_results is None else max_results
+    if over > capacity_per_device and int(counts.sum()) <= limit:
+        del out
+        bucket = 1 << (over - 1).bit_length()
+        return run(min(bucket, limit))
     return out
 
 

@@ -169,7 +169,9 @@ def _ring_hits_bytes(capacity_per_device: int, max_results: int | None) -> int:
     """Worst-case hit-buffer bytes per position: the overflow auto-retry
     (parallel/ring._run_with_retry) can regrow the buffer to a pow2 bucket
     capped at the GLOBAL max_results, so the up-front check budgets that
-    ceiling (the engine model worst-cases the same way)."""
+    ceiling (the engine model worst-cases the same way).  One set is enough:
+    the retry frees the first run's buffers before it allocates its own, as
+    the engine's re-run does (``sweep_buffer_bytes``)."""
     worst = capacity_per_device
     if max_results is not None:
         worst = max(worst, max_results)
@@ -240,8 +242,10 @@ def check_ring_fit(
     ``--split_factor`` whose worst shard fits on this ring — --use_mesh
     composes with --split_factor (parallel/ring.submatrix_pairs_sharded),
     so sharding is the memory relief here as on the engine path
-    (README.md:94-102).  Hit buffers are budgeted at their worst
-    post-auto-retry capacity (min'd against ``max_results`` when given).
+    (README.md:94-102).  Hit buffers are budgeted once per position, at
+    their worst post-auto-retry capacity (the larger of the capacity and
+    ``max_results`` when given): the retry frees the first run's buffers
+    first.
 
     ``num_devices`` counts ring positions; ``positions_per_device`` is the
     most positions any one device holds.  ``submatrix`` enables the

@@ -152,12 +152,14 @@ def test_emit_checks_its_inputs_and_does_not_fall_back_off_the_cpu():
 
 def test_snapshots_of_the_count():
     hits = HitBuffer(4, "cpu")
-    assert hits.latest_snapshot() is None
+    assert hits.pending == 0
     hits.count += 3
     hits.snapshot()
     hits.count += 4
     hits.snapshot()
-    assert hits.latest_snapshot() == 7 and hits.latest_snapshot() is None
+    assert hits.pending == 2
+    assert hits.wait_oldest() == 3 and hits.wait_oldest() == 7
+    assert hits.pending == 0 and hits.waits == 2
     assert int(hits.count) == 7
 
 
@@ -166,8 +168,9 @@ N = 48
 
 def test_lagged_max_results_check_stops_the_sweep_like_jax(monkeypatch):
     """With a count copy every 2 steps, a keep-all sweep of 21 steps raises
-    ResourceExhausted with the JAX engine's message as soon as a copy shows
-    more than max_results, before its last step."""
+    ResourceExhausted with the JAX engine's message once the copy it waits
+    for, ``LIMIT_CHECK_WINDOW`` copies behind the newest, shows more than
+    max_results, before its last step."""
     g = random_genotypes(N, 300, missing_rate=0.05, seed=23)
     common = dict(panel=8, kin_threshold=-2.0, max_results=100)
     with pytest.raises(JaxResourceExhausted) as ref:
@@ -185,8 +188,9 @@ def test_lagged_max_results_check_stops_the_sweep_like_jax(monkeypatch):
     with pytest.raises(ResourceExhaustedError) as got:
         engine.run()
     assert str(got.value) == str(ref.value)
-    # 28 + 64 = 92 hits at the copy after step 2, 220 at the one after step 4.
-    assert len(steps) == 4 < len(engine._panel_pair_params()) == 21
+    # 28 + 64 = 92 hits at the copy after step 2, 220 at the one after step 4;
+    # the sweep waits for that one when the copy after step 12 is pending.
+    assert len(steps) == 12 < len(engine._panel_pair_params()) == 21
 
 
 def test_re_run_holds_every_pair_after_overflow():

@@ -3,7 +3,8 @@ KingEngine running its Pallas kernel in interpret mode (as
 tests/test_engine.py runs it): identical ResultSets, kin compared as uint32
 bits, for every shard of split factors 1 and 2 at two thresholds, through
 the result buffer's overflow re-run, and with the same max_results overflow
-error."""
+error, which a sweep raises after waiting for the count copy
+``LIMIT_CHECK_WINDOW`` copies behind the newest."""
 
 import io
 
@@ -15,7 +16,11 @@ from cuking_tpu.models.king import KingEngine as JaxEngine
 from cuking_tpu.parallel.submatrix import Submatrix as JaxSubmatrix
 from cuking_tpu.utils.status import ResourceExhaustedError as JaxResourceExhausted
 from cuking_tpu.utils.stopwatch import StageLogger as JaxStageLogger
+import torch
+
+from cuking_tpu_torch.models import king as torch_king
 from cuking_tpu_torch.models.king import KingConfig, KingEngine, resolve_kernel_name
+from cuking_tpu_torch.ops.compaction import HitBuffer
 from cuking_tpu_torch.parallel.submatrix import Submatrix
 from cuking_tpu_torch.utils.hbm import check_engine_fit
 from cuking_tpu_torch.utils.status import InvalidArgumentError, ResourceExhaustedError
@@ -123,3 +128,91 @@ def test_engine_fit_names_the_split_factor():
         check_engine_fit(32_768, 3128, sub, cfg, 1, bytes_limit=900 << 20)
     with pytest.raises(InvalidArgumentError, match="no --split_factor"):
         check_engine_fit(32_768, 3128, sub, cfg, 1, bytes_limit=100 << 20)
+
+
+class _HeldEvent:
+    """A count copy that lands only when waited on: it fills its host tensor
+    in ``synchronize``, and ``query`` stays false until then."""
+
+    def __init__(self, hits, host, value):
+        self.hits, self.host, self.value = hits, host, value
+        self.index = hits.taken
+
+    def query(self):
+        return False
+
+    def synchronize(self):
+        self.host.fill_(self.value)
+        self.hits.waited.append((self.hits.taken, self.index))
+
+
+class _HeldHitBuffer(HitBuffer):
+    """A HitBuffer whose snapshots hold their value back until waited on, so
+    a sweep that only polled them would never see one."""
+
+    def __init__(self, capacity, device):
+        super().__init__(capacity, device)
+        self.taken, self.waited = 0, []
+
+    def snapshot(self):
+        self.taken += 1
+        host = torch.zeros((), dtype=torch.int64)
+        self._snapshots.append((host, _HeldEvent(self, host, int(self.count))))
+
+
+@pytest.fixture
+def held(monkeypatch):
+    """The engine sweeps into _HeldHitBuffer with a count copy every 2
+    steps; returns the buffers made and the steps run."""
+    buffers, steps = [], []
+
+    def make(capacity, device):
+        buffers.append(_HeldHitBuffer(capacity, device))
+        return buffers[-1]
+
+    def counted(*args, **kw):
+        steps.append(args[2:4])
+        return emit_hits(*args, **kw)
+
+    emit_hits = torch_king.emit_hits
+    monkeypatch.setattr(torch_king, "HitBuffer", make)
+    monkeypatch.setattr(torch_king, "emit_hits", counted)
+    monkeypatch.setattr(torch_king, "LIMIT_CHECK_STEPS", 2)
+    return buffers, steps
+
+
+def test_sweep_waits_for_the_copy_a_window_back(genotypes, held):
+    """Once more than LIMIT_CHECK_WINDOW copies are pending, the sweep waits
+    for the oldest: the k-th wait is for copy k, made when copy k + 4 was
+    taken.  The results are those of a sweep without the held copies."""
+    buffers, steps = held
+    cfg = KingConfig(panel=8, device="cpu", kin_threshold=0.05)
+    engine = KingEngine.from_genotypes(genotypes, cfg)
+    got = engine.run()
+    num_steps = len(engine._panel_pair_params())
+    assert len(steps) == num_steps == 21 and len(buffers) == 1
+    window = torch_king.LIMIT_CHECK_WINDOW
+    taken = num_steps // 2
+    assert buffers[0].waited == [(k + window, k) for k in range(1, taken - window + 1)]
+    assert buffers[0].waits == taken - window
+    ref = KingEngine.from_genotypes(genotypes, cfg).run()
+    assert len(ref) > 0
+    _assert_same(got, ref)
+
+
+def test_overflowing_sweep_stops_within_the_window(genotypes, held):
+    """A keep-all sweep whose first count copy already passes max_results
+    raises the JAX engine's error after (LIMIT_CHECK_WINDOW + 1) x 2 steps of
+    its 21, having waited for that first copy only."""
+    buffers, steps = held
+    common = dict(panel=8, kin_threshold=-2.0, max_results=50)
+    with pytest.raises(JaxResourceExhausted) as ref:
+        JaxEngine.from_genotypes(genotypes, JaxConfig(
+            **common, kernel="matmul", site_chunk_words=16, sweep_batch=2)).run()
+    engine = KingEngine.from_genotypes(genotypes, KingConfig(**common, device="cpu"))
+    with pytest.raises(ResourceExhaustedError) as got:
+        engine.run()
+    assert str(got.value) == str(ref.value)
+    window = torch_king.LIMIT_CHECK_WINDOW
+    assert len(steps) == (window + 1) * 2 < len(engine._panel_pair_params())
+    assert buffers[0].waited == [(window + 1, 1)]

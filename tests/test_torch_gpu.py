@@ -28,7 +28,7 @@ from cuking_tpu_torch.ops.king_cuda import (
     panel_counts_five_block,
     panel_counts_popc_indexed,
 )
-from cuking_tpu_torch.models.king import KingConfig, KingEngine
+from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
 from cuking_tpu_torch.ops.king_emit import emit_hits, emit_hits_plain
 from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
@@ -37,6 +37,9 @@ from cuking_tpu_torch.parallel.ring import (
     all_pairs_sharded,
     ring_output_to_resultset,
 )
+from cuking_tpu_torch.parallel.submatrix import Submatrix
+from cuking_tpu_torch.utils.hbm import ring_shard_bytes
+from cuking_tpu_torch.utils.status import ResourceExhaustedError
 from cuking_tpu_torch.utils.synthetic import (
     edge_planes,
     random_counters,
@@ -190,8 +193,9 @@ def test_emit_kernel_matches_plain_version(cuda_device, source, strict, sym, thr
 @pytest.mark.gpu
 def test_engine_sweep_never_waits_for_the_device(cuda_device, monkeypatch):
     """The engine's step loop under ``set_sync_debug_mode("error")``, with
-    a count copy every 2 steps: no call in it waits for the device, and the
-    hits are those of ``run()``."""
+    a count copy every 2 steps: no call in it waits for the device but its
+    deliberate waits on the events of the count copies a window back, and
+    the hits are those of ``run()``."""
     g = random_genotypes(600, 3_000, missing_rate=0.05, seed=3, num_related_pairs=4)
     engine = KingEngine.from_genotypes(g, KingConfig(kernel="cuda", device="cuda", panel=128))
     rs = engine.run()
@@ -206,6 +210,72 @@ def test_engine_sweep_never_waits_for_the_device(cuda_device, monkeypatch):
     steps = len(engine._panel_pair_params())
     assert (king_cuda.launches - before[0], king_emit.emit_launches - before[1]) == (steps,) * 2
     assert int(hits.count) == len(rs) >= 4
+    assert hits.waits == steps // 2 - king_model.LIMIT_CHECK_WINDOW > 0
+
+
+@pytest.mark.gpu
+def test_overflowing_sweep_stops_early_on_the_card(cuda_device):
+    """A keep-all sweep of 28 panels (406 steps) passes the default
+    max_results within its first 64 steps; it raises the JAX engine's error
+    with at most (LIMIT_CHECK_WINDOW + 1) x 64 steps queued, long before its
+    last."""
+    g = random_genotypes(28 * 1024, 1_000, missing_rate=0.05, seed=28)
+    engine = KingEngine.from_genotypes(g, KingConfig(kernel="cuda", device="cuda",
+                                                     kin_threshold=-2.0))
+    steps = len(engine._panel_pair_params())
+    assert steps == 406
+    engine.planes_dev
+    before = king_emit.emit_launches
+    with pytest.raises(ResourceExhaustedError, match="--max_results"):
+        engine.run()
+    queued = king_emit.emit_launches - before
+    bound = (king_model.LIMIT_CHECK_WINDOW + 1) * king_model.LIMIT_CHECK_STEPS
+    assert 0 < queued <= bound < steps
+
+
+@pytest.mark.gpu
+def test_ring_retry_holds_one_set_of_hit_buffers(cuda_device):
+    """A keep-all ring of 2 positions on the card overflows 2^21 slots per
+    position and re-runs at 2^22: its peak device memory stays inside
+    check_ring_fit's model and below the planes plus both runs' hit buffers,
+    since the first run's are freed before the retry makes its own; the
+    rows equal the engine's."""
+    n, sites, first = 4096, 3_000, 1 << 21
+    layout = PlaneLayout.create(sites)
+    planes = random_planes(n, layout, np.random.default_rng(21))
+    mesh = RingMesh([cuda_device] * 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = all_pairs_sharded(planes, n, mesh, panel_counts_cuda, kin_threshold=-2.0,
+                            capacity_per_device=first,
+                            indexed_kernel=panel_counts_cuda_indexed)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert out.capacity_per_device == 2 * first
+    model = ring_shard_bytes(n, n, True, layout.words, 1024, 1, 2, first,
+                             king_model.DEFAULT_MAX_RESULTS, positions_per_device=2)
+    both_sets = 2 * 24 * (first + out.capacity_per_device)
+    assert peak <= model
+    assert peak < planes.nbytes + both_sets
+    got = ring_output_to_resultset(out)
+    del out
+    ref = KingEngine(_storage(planes, layout), KingConfig(
+        kernel="cuda", device="cuda", kin_threshold=-2.0)).run()
+    assert len(got) == len(ref) > 2 * first
+    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
+
+
+def _storage(planes, layout):
+    """A split-1 PanelStorage holding ``planes`` ([2, n, W] uint32)."""
+    n = planes.shape[1]
+    storage = PanelStorage(layout, Submatrix.create(n, 1, 0), 1024)
+    storage.planes[:, :n] = planes
+    storage.mark_mutated()
+    return storage
 
 
 @pytest.mark.gpu

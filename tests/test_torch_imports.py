@@ -1,6 +1,6 @@
 """The port stands alone: importing any cuking_tpu_torch module loads neither
-jax, cuking_tpu, triton, pyarrow nor hail, and chip_smoke.py refuses to run
-without a CUDA device."""
+jax, cuking_tpu, triton, pyarrow nor hail, its tools load neither jax nor
+cuking_tpu, and chip_smoke.py refuses to run without a CUDA device."""
 
 import os
 import subprocess
@@ -35,6 +35,29 @@ def test_port_imports_no_jax_triton_or_pyarrow():
         text=True, check=True,
     ).stdout.split(maxsplit=1)
     assert int(out[0]) >= 20  # every module of the package was imported
+    assert out[1].strip() == "[]"
+
+
+_IMPORT_TOOLS = """
+import sys
+sys.path.insert(0, ".")
+from tools import torch_baseline_parity, torch_capacity_plan, torch_sweep_ab
+plan = torch_capacity_plan.build_plan(150_000, 1_000_000)
+g = torch_baseline_parity.edge_case_genotypes(24, 300, 1)
+torch_baseline_parity.expected_table(g, torch_baseline_parity.CATCH_ALL)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "cuking_tpu"))
+print(plan["split_factor"], bad)
+"""
+
+
+def test_port_tools_import_no_jax():
+    """The parity, capacity-plan and sweep A/B tools load neither jax nor
+    cuking_tpu, not even through a numpy-only module of it."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_TOOLS], cwd=REPO, capture_output=True,
+        text=True, check=True,
+    ).stdout.split(maxsplit=1)
+    assert out[0] == "1"
     assert out[1].strip() == "[]"
 
 

@@ -7,6 +7,7 @@ oracle and its overflow messages, which keeps the file's JAX compiles few.
 The port's positions are ``cpu`` repeated, so the sub-tiles run the plain
 versions of the count kernel."""
 
+import weakref
 from functools import lru_cache
 
 import numpy as np
@@ -212,6 +213,33 @@ def test_overflow_auto_retry():
                    max_results=1 << 20)
     assert out.capacity_per_device == 1 << (int(out.counts.max()) - 1).bit_length()
     assert_same(ring.ring_output_to_resultset(out, 1 << 20), oracle(g, -2.0))
+
+
+def test_retry_frees_the_first_hit_buffers():
+    """When the retry's run starts, nothing holds the first run's hit
+    buffers any more (weak references to them are dead), so a position
+    never holds two sets; the rows equal the JAX ring's on the same forced
+    overflow."""
+    g = random_genotypes(32, 200, missing_rate=0.0, seed=34)
+    mesh = ring.RingMesh(["cpu"] * 4)
+    blocks, _ = ring._pad_and_shard(pack_genotypes(g, PlaneLayout.create(200)), 32, mesh, 1)
+    first, alive = [], []
+
+    def run(capacity):
+        if first:
+            alive.extend(ref() is not None for ref in first)
+        out = ring._ring_fn(blocks, -2.0, mesh, kernel=port_kernel, num_samples=32,
+                            capacity=capacity)
+        if not first:
+            first.extend(weakref.ref(h) for h in out.hits)
+        return out
+
+    out = ring._run_with_retry(run, 8, 1 << 20, True)
+    assert alive == [False] * 4 and out.capacity_per_device > 8
+    ref = jring.ring_output_to_resultset(
+        jax_out(g, 4, kin_threshold=-2.0, capacity_per_device=8, max_results=1 << 20),
+        1 << 20)
+    assert_same(ring.ring_output_to_resultset(out, 1 << 20), ref)
 
 
 def test_skewed_hits_auto_retry():
