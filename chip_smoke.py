@@ -86,6 +86,22 @@ Phases (any failure exits nonzero):
     1,000 x 100,000 through the CLI on cuda: every finite-kin pair bit-exact
     against the numpy oracle, the 0.0884-thresholded run, and the merged
     ten shards of split 4; each stage's wall time is printed.
+12a. The ring's copy between cards, forced onto one card
+    (``ring._SideStreams.copy``), twice under a spin kernel on the compute
+    stream: a first copy of a block of 16,384 rows x 100,000 sites makes
+    the side streams and the receive block (its time is printed), and the
+    second, into the reused block, must be delivered before the spin ends:
+    the copy does not queue behind compute, which is all one card can
+    show.
+12b. ``tools/torch_scaling_bench.py --same-card --devices 1 2 3 4`` at
+    8,192 rows per position: the same planted hits at every D, and the
+    ring's steps and sub-tiles as ``ring_schedule`` has them.
+12c. Only with more than one card visible: the scaling tool with one
+    position per card (efficiency against D = 1 and the share of transfer
+    time under count-kernel time), and phase 6's cell A through a ring of
+    one position per card: the engine's rows, the sweep time, each card's
+    peak memory against ``check_ring_fit``'s model, and the overlap share.
+    On one card it prints that it did not run, and why.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
@@ -1178,6 +1194,158 @@ def phase_parity(card: str) -> dict:
     return launches
 
 
+def phase_side_copy(card: str) -> None:
+    """Phase 12a: the side-stream copy of the ring, forced onto cuda:0,
+    delivered while a spin kernel still holds the compute stream."""
+    import torch
+
+    from cuking_tpu_torch.ops.bitset import PlaneLayout
+    from cuking_tpu_torch.parallel.ring import _SideStreams
+
+    words = PlaneLayout.create(SITES).words
+    block = torch.randint(-2**31, 2**31 - 1, (2, 16384, words), dtype=torch.int32,
+                          device="cuda:0")
+    streams = _SideStreams([block])
+    torch.cuda.synchronize()
+
+    def copy_under_spin():
+        torch.cuda._sleep(400_000_000)
+        spin_done = torch.cuda.current_stream().record_event()
+        t = time.perf_counter()
+        out, delivered = streams.copy(block, None, block.device)
+        delivered.synchronize()
+        return out, 1e3 * (time.perf_counter() - t), spin_done.query()
+
+    # The first copy makes the side streams and the receive block, as the
+    # ring's first rotation does, before any of its kernels is queued; the
+    # second reuses them, as every later rotation does, and must not wait.
+    first, first_ms, first_waited = copy_under_spin()
+    del first
+    streams.release()
+    torch.cuda.synchronize()
+    out, copy_ms, waited = copy_under_spin()
+    check(not waited, "the side-stream copy waited for the compute stream")
+    streams.join()
+    torch.cuda.synchronize()
+    check(torch.equal(out, block), "the side-stream copy differs from its source")
+    say(f"phase 12a: a {block.nbytes / 1e6:.0f} MB block copied on the ring's side "
+        f"streams: the first copy (new side streams, a new receive block) delivered "
+        f"{first_ms:.2f} ms after it was queued, "
+        f"{'after' if first_waited else 'before'} the spin kernel on the compute stream "
+        f"ended; the second, into the reused block, {copy_ms:.2f} ms after, while the "
+        f"spin still held the compute stream ({card})")
+
+
+def scaling_report(argv: list) -> dict:
+    """tools/torch_scaling_bench.py in this process; its JSON line."""
+    import contextlib
+    import io
+
+    from tools import torch_scaling_bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = torch_scaling_bench.main(argv)
+    check(rc == 0, f"torch_scaling_bench {' '.join(argv)} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def phase_scaling_same_card(card: str) -> dict:
+    """Phase 12b: the scaling tool with every position on cuda:0."""
+    from cuking_tpu_torch.parallel.ring import ring_num_steps
+    from tools.torch_scaling_bench import schedule_sub_tiles
+
+    rows = 8192
+    reset_launches()
+    t = time.perf_counter()
+    report = scaling_report(["--same-card", "--devices", "1", "2", "3", "4",
+                             "--rows-per-gpu", str(rows)])
+    launches = read_launches("the scaling tool on one card")
+    results = report["weak_scaling"]
+    check([r["devices"] for r in results] == [1, 2, 3, 4], f"swept {results}")
+    check(len({r["hits"] for r in results}) == 1, f"hit totals differ across D: {results}")
+    for r in results:
+        check(r["ring_steps"] == ring_num_steps(r["devices"]), f"ring steps of {r}")
+        check(r["sub_tiles"] == schedule_sub_tiles(r["devices"], rows // 1024),
+              f"sub-tiles of {r}")
+    say(f"phase 12b: scaling tool, {rows} rows per position x {SITES} sites, all on "
+        f"cuda:0: {results[0]['hits']} hits at every D, steps and sub-tiles as scheduled; "
+        + "; ".join(f"D={r['devices']} median {r['median_s']:.4f} s (min {r['min_s']:.4f}, "
+                    f"max {r['max_s']:.4f}), {r['sub_tiles']} sub-tiles" for r in results)
+        + f"; {time.perf_counter() - t:.1f} s in all ({card}); {launches} kernel launches")
+    return launches
+
+
+def phase_cards(card: str, storage, engine_rs) -> dict:
+    """Phase 12c: the ring with one position per card, when there are
+    several cards; on one card it says that it did not run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuking_tpu_torch.parallel.ring import (
+        DEFAULT_MAX_RESULTS,
+        RingMesh,
+        _pad_and_shard,
+        all_pairs_presharded,
+        ring_output_to_resultset,
+    )
+    from cuking_tpu_torch.utils.hbm import ring_shard_bytes
+    from tools.torch_scaling_bench import covered_share, profiled_intervals
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        say("phase 12c: not run: one card is visible, and the overlap of a rotation "
+            "with compute shows only between cards (not measured)")
+        return {}
+    reset_launches()
+    report = scaling_report(["--no-assert"])
+    launches = {"scaling_cards": read_launches("the scaling tool over the cards")}
+    say(f"phase 12c: scaling tool over {cards} cards: " + "; ".join(
+        f"D={r['devices']} median {r['median_s']:.4f} s, "
+        f"{r['pairs_per_sec_per_gpu'] / 1e6:.1f}M pairs/s per GPU, efficiency "
+        f"{r['efficiency_vs_1dev']:.3f}" for r in report["weak_scaling"])
+        + f"; transfer under count-kernel time: {report['overlap']} ({card})")
+
+    n = storage.submatrix.num_rows
+    mesh = RingMesh([f"cuda:{k}" for k in range(cards)])
+    blocks, nd = _pad_and_shard(storage.planes, n, mesh, 1)
+
+    def sweep():
+        out = all_pairs_presharded(blocks, n, **ring_kw(mesh=mesh, kin_threshold=0.0884))
+        for k in range(cards):
+            torch.cuda.synchronize(k)
+        return out
+
+    sweep()  # builds the kernels on every card
+    base = []
+    for k in range(cards):
+        torch.cuda.reset_peak_memory_stats(k)
+        base.append(torch.cuda.memory_allocated(k))
+    reset_launches()
+    t = time.perf_counter()
+    out = sweep()
+    sweep_s = time.perf_counter() - t
+    launches["ring_cards"] = read_launches("the ring over the cards")
+    same_results(ring_output_to_resultset(out), engine_rs, f"ring of {cards} cards vs engine")
+    model = ring_shard_bytes(n, n, True, storage.layout.words, 1024, 1, cards, 1 << 20,
+                             DEFAULT_MAX_RESULTS)
+    peaks = [torch.cuda.max_memory_allocated(k) - base[k] for k in range(cards)]
+    for k, peak in enumerate(peaks):
+        check(peak <= model, f"cuda:{k} peaked at {peak} B, over the model's {model} B")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sweep()
+    overlap = covered_share(profiled_intervals(prof))
+    block_mb = 2 * nd * storage.layout.words * 4 / 2**20
+    say(f"phase 12c: cell A ({n} x {SITES}) through a ring of one position per card "
+        f"({cards} cards): the engine's {len(engine_rs)} pairs; sweep {sweep_s:.4f} s, "
+        f"{n * (n - 1) // 2 / sweep_s:,.0f} pairs/s; peak memory per card "
+        + ", ".join(f"{p / 2**20:.1f}" for p in peaks)
+        + f" MiB (a block is {block_mb:.1f} MiB; check_ring_fit's model "
+        f"{model / 2**20:.1f} MiB); transfer under count-kernel time: {overlap} ({card}); "
+        f"{launches} kernel launches")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1203,12 +1371,15 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches["cli"], inp, split1 = phase_cli(tmp)
         launches["ring"] = phase_ring(card, engine_storage, engine_rs)
-        del engine_storage, engine_rs
         launches["rings_keep_all"] = phase_rings_keep_all(card, keep_storage, keep_rs)
         launches["cli_mesh"] = phase_cli_mesh(tmp, inp, split1)
         launches["king"] = phase_king_popcount(card)
         launches["fan_out"] = phase_fan_out(tmp, card)
     launches["baseline_parity"] = phase_parity(card)
+    phase_side_copy(card)
+    launches["scaling_same_card"] = phase_scaling_same_card(card)
+    launches.update(phase_cards(card, engine_storage, engine_rs))
+    del engine_storage, engine_rs
     check(king_cuda.popc_launches == popc_launches,
           "the AND + popcount yardstick launched on the main path")
     # The emit kernel replaces no TPU kernel: the JAX package left the step

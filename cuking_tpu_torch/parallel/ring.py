@@ -27,12 +27,28 @@ What replaces the TPU package's machinery:
   On a multi-GPU host the positions are ``cuda:0 … cuda:k-1``; several
   positions may share one device (``cuda:0`` repeated on a one-card machine,
   ``cpu`` repeated in the tests).
-* ``shard_map`` + ``lax.ppermute`` become an eager lockstep loop: at each
-  step every local position runs its sub-tile loop, then the buffers rotate.
-  Between local positions a rotation hands the tensor on (a device copy only
-  when the devices differ), so a rotation never overwrites a buffer that a
-  queued kernel still reads.  Between ranks it is ``batch_isend_irecv`` into
-  fresh buffers.
+* ``shard_map`` + ``lax.ppermute`` become an eager lockstep loop over the
+  local positions with the JAX ring's schedule: rotation t+1 is started
+  before step t's first sub-tile is queued (the first one before step 0's
+  triangle), and finished just before step t+1's first sub-tile, so the
+  transfer can run under step t's kernels.  At most one rotation is in
+  flight, so a position holds its resident block, the visitor being read
+  and the visitor in flight: the three blocks ``utils/hbm.ring_shard_bytes``
+  budgets.  A rotation (:func:`_start_rotation`, :func:`_finish_rotation`)
+  moves each block by one of three transports:
+
+  - positions on one device: the tensor itself is handed on, with no copy
+    and no stream, so a rotation never overwrites a buffer that a queued
+    kernel still reads;
+  - positions on separate cards of one process: a copy on side streams
+    (:class:`_SideStreams`), ordered by CUDA events only: it waits for the
+    event that marks the source block as delivered and for the release of
+    the buffer it writes into (the visitor two steps back), and the
+    receiving card's compute stream waits for its delivery event just
+    before the step that reads it.  No call waits on the host;
+  - between ranks: ``batch_isend_irecv`` into fresh buffers, posted before
+    the step's tiles are queued and waited on (``Work.wait()``: a stream
+    wait on NCCL, a host wait on gloo) just before the next step.
 * Each sub-tile runs the count kernel: ``indexed_kernel`` (the CUDA
   kernel's indexed entry, ``planes_j=``/``panel_j=`` into the resident and
   visiting blocks) when given, else ``kernel`` on sliced rows.  The wrap
@@ -47,17 +63,19 @@ What replaces the TPU package's machinery:
   (``_check_overflow``) are decided the same way on every rank: the
   reference's global ``max_results`` bound (cuking.cu:747-751).
 
-Between rotations nothing waits for a device: on a card a sub-tile is two
-kernel launches on its position's current stream, so positions on separate
-GPUs of one process are expected to run side by side; that is unverified
-until ``tools/torch_multi_card_check.sh`` has run on several cards.  A
-rotation between local positions is a device copy ordered on the streams
-(PyTorch's copy between devices waits on both devices' current streams);
-one between ranks waits for its transfers.
+On a card a sub-tile is two kernel launches on its device's current
+stream, and nothing in the step loop waits for a device.  A step's
+sub-tiles are queued round robin over the local positions
+(:func:`_interleave`), so every card has work from the step's start.  On
+one card no rotation copies anything.  On four H100s (700 W) a ring of
+one position per card returned the engine's rows at 1.02-1.035 of one
+card's pairs/s per GPU for D = 2-4; ``tools/torch_scaling_bench.py``
+measures that and the share of transfer time under count-kernel time.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -218,27 +236,138 @@ def _emit(hits: HitBuffer, counts: KingCounts, threshold: float,
               strict=same, sym=True)
 
 
-def _rotate(bufs: dict, mesh: RingMesh) -> dict:
-    """Backwards rotation: position d receives the buffer of position d+1.
-    A local receiver gets the tensor itself (copied only across devices);
-    a remote one gets it through ``batch_isend_irecv`` into a fresh buffer."""
+class _SideStreams:
+    """The side streams of one ring run's copies between the cards of this
+    process: per card, a stream that copies its blocks out and one that
+    receives into it, so a copy is ordered by events and never queues
+    behind the compute of either card.
+
+    PyTorch runs a copy between two cards on the SOURCE card's current
+    stream, after an event of the DESTINATION card's current stream, and
+    makes the latter wait for the copy; :meth:`copy` makes both side
+    streams current around it.  Received blocks are allocated on the
+    receive stream and are read by the card's compute stream and by its
+    send stream, so before a step drops one, :meth:`release` orders the
+    receive stream after both: the caching allocator then gives its memory
+    to the next receive without a host wait, and the copy into it waits for
+    the step that read it.  ``start`` holds, per card, an event at the
+    compute stream's point when the run began, where the resident blocks
+    are delivered."""
+
+    def __init__(self, blocks):
+        self.start = {d: torch.cuda.current_stream(d).record_event()
+                      for d in {b.device for b in blocks} if d.type == "cuda"}
+        self.pairs: dict = {}
+
+    def _pair(self, device) -> tuple:
+        if device not in self.pairs:
+            self.pairs[device] = (torch.cuda.Stream(device), torch.cuda.Stream(device))
+        return self.pairs[device]
+
+    def copy(self, buf: torch.Tensor, ready, device) -> tuple:
+        """Queues a copy of ``buf`` into a new tensor on ``device`` behind
+        ``ready`` (the event of ``buf``'s delivery; None for a block
+        resident since the run began), and returns the new tensor with the
+        event of its delivery."""
+        send = self._pair(buf.device)[0]
+        recv = self._pair(device)[1]
+        send.wait_event(ready if ready is not None else self.start[buf.device])
+        with torch.cuda.stream(recv):
+            out = torch.empty_like(buf, device=device)
+            with torch.cuda.stream(send):
+                out.copy_(buf)
+            recv.wait_stream(send)  # on one card PyTorch adds no such wait
+            return out, recv.record_event()
+
+    def release(self) -> None:
+        """Orders each card's receive stream after what its compute and
+        send streams have queued: called before the blocks they read are
+        dropped."""
+        for device, (send, recv) in self.pairs.items():
+            recv.wait_stream(torch.cuda.current_stream(device))
+            recv.wait_stream(send)
+
+    def join(self) -> None:
+        """Ends the run: each card's compute stream waits for its side
+        streams, and they for it, so nothing queued later on either reuses
+        a block under a queued reader."""
+        self.release()
+        for device, (send, recv) in self.pairs.items():
+            compute = torch.cuda.current_stream(device)
+            compute.wait_stream(send)
+            compute.wait_stream(recv)
+
+
+class _Rotation(NamedTuple):
+    """One backwards rotation in flight: ``blocks[d]`` is what position d
+    will read, as (tensor, delivery event or None), and ``works`` the
+    requests of its transfers between ranks, into ``from_ranks``."""
+
+    blocks: dict
+    works: list
+    from_ranks: tuple
+
+
+def _start_rotation(bufs: dict, mesh: RingMesh, streams: _SideStreams) -> _Rotation:
+    """Starts the backwards rotation: position d will receive position
+    d+1's block.  ``bufs`` maps each local position to (tensor, delivery
+    event or None).  A receiver on the same device gets the tensor itself;
+    one on another card of this process a copy on the side streams; a
+    remote one a fresh buffer from ``batch_isend_irecv``, posted here."""
     d_ = mesh.size
-    out, ops = {}, []
-    for e, buf in bufs.items():
+    out, ops, from_ranks = {}, [], []
+    for e, (buf, ready) in bufs.items():
         dst = (e - 1) % d_
-        if mesh.ranks[dst] == mesh.rank:
-            out[dst] = buf.to(mesh.devices[dst])
-        else:
+        if mesh.ranks[dst] != mesh.rank:
             ops.append(dist.P2POp(dist.isend, buf, mesh.ranks[dst], tag=dst))
-    for d, buf in bufs.items():
+            continue
+        device = bufs[dst][0].device  # the receiver's own, index resolved
+        if device == buf.device:
+            out[dst] = (buf, ready)
+        else:
+            out[dst] = streams.copy(buf, ready, device)
+    for d, (buf, _) in bufs.items():
         src = (d + 1) % d_
         if mesh.ranks[src] != mesh.rank:
-            out[d] = torch.empty_like(buf)
-            ops.append(dist.P2POp(dist.irecv, out[d], mesh.ranks[src], tag=d))
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-    return out
+            recv = torch.empty_like(buf)
+            out[d] = (recv, None)
+            from_ranks.append(d)
+            ops.append(dist.P2POp(dist.irecv, recv, mesh.ranks[src], tag=d))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return _Rotation(out, works, tuple(from_ranks))
+
+
+def _finish_rotation(rotation: _Rotation, streams: _SideStreams) -> dict:
+    """Finishes a rotation just before the first sub-tile of the step that
+    reads it: waits for the transfers between ranks (on NCCL the current
+    stream waits; on gloo the host, after the step before was computed),
+    makes each compute stream wait for the copies delivered to its card,
+    and releases the blocks the step before read.  Returns the rotated
+    ``bufs``."""
+    for work in rotation.works:
+        work.wait()
+    streams.release()
+    blocks = dict(rotation.blocks)
+    for d, (buf, ready) in blocks.items():
+        if not buf.is_cuda:
+            continue
+        compute = torch.cuda.current_stream(buf.device)
+        if d in rotation.from_ranks:
+            blocks[d] = (buf, compute.record_event())  # for a copy onwards
+        elif ready is not None:
+            compute.wait_event(ready)
+    return blocks
+
+
+def _rotate(bufs: dict, mesh: RingMesh) -> dict:
+    """One whole rotation of ``bufs`` (position → tensor), started and
+    finished with no step between: what the ring's schedule does to its
+    blocks from one step to the next."""
+    streams = _SideStreams(bufs.values())
+    rotation = _start_rotation({p: (b, None) for p, b in bufs.items()}, mesh, streams)
+    out = _finish_rotation(rotation, streams)
+    streams.join()
+    return {p: b for p, (b, _) in out.items()}
 
 
 def _finish(hits: dict, mesh: RingMesh) -> RingOutput:
@@ -260,6 +389,16 @@ def _check_blocks(blocks, mesh: RingMesh) -> None:
     shapes = {tuple(b.shape) for b in blocks}
     if len(shapes) != 1:
         raise InvalidArgumentError(f"ring blocks differ in shape: {sorted(shapes)}")
+
+
+def _interleave(per_position: list) -> list:
+    """A step's sub-tiles, one position's after another's in turn: each
+    sub-tile launches on its own position's device, so the host gives every
+    card work from the step's start, where queuing one position's whole
+    step before the next one's left the later cards idle meanwhile.  Each
+    position keeps its own order, so its hits land as before."""
+    return [args for group in itertools.zip_longest(*per_position)
+            for args in group if args is not None]
 
 
 def _ring_fn(
@@ -296,19 +435,27 @@ def _ring_fn(
         _emit(hits[me], counts, threshold, row_offset + me * nd + i_off, gj_base,
               row_limit, row_limit, same)
 
-    # Step 0: the resident block's own upper triangle of sub-tiles; the
-    # diagonal sub-tiles take the kernel's tri tile skip.
-    for me in local:
-        for ii in range(ns):
-            for jj in range(ii, ns):
-                tile(me, local[me], ii * p, p, jj * p, p,
-                     row_offset + me * nd + jj * p, same=ii == jj)
+    num_steps = ring_num_steps(d_)
+    streams = _SideStreams(blocks)
+    bufs = {me: (local[me], None) for me in local}
+    # The first rotation starts before step 0: the resident block's own
+    # upper triangle of sub-tiles, whose diagonal sub-tiles take the
+    # kernel's tri tile skip.
+    rotation = _start_rotation(bufs, mesh, streams) if num_steps > 1 else None
+    for args in _interleave([
+        [(me, local[me], ii * p, p, jj * p, p, row_offset + me * nd + jj * p, ii == jj)
+         for ii in range(ns) for jj in range(ii, ns)]
+        for me in local
+    ]):
+        tile(*args)
 
-    bufs = dict(local)
-    for t in range(1, d_ // 2 + 1):
-        bufs = _rotate(bufs, mesh)
+    for t in range(1, num_steps):
+        bufs = _finish_rotation(rotation, streams)
+        rotation = _start_rotation(bufs, mesh, streams) if t + 1 < num_steps else None
+        per_position = []
         for me in local:
             gj0 = row_offset + ((me + t) % d_) * nd
+            visitor = bufs[me][0]
             if 2 * t < d_:
                 # Full steps: the visitor is disjoint from the resident
                 # block, so the whole ns×ns sub-grid is useful work.
@@ -321,9 +468,9 @@ def _ring_fn(
                 # [0, p1) and [p1, p).
                 p1 = _wrap_split(p, row_multiple)
                 if 2 * me < d_:
-                    tile(me, bufs[me], 0, p1, 0, p, gj0)
+                    per_position.append([(me, visitor, 0, p1, 0, p, gj0)])
                 else:
-                    tile(me, bufs[me], 0, p, p1, p - p1, gj0 + p1)
+                    per_position.append([(me, visitor, 0, p, p1, p - p1, gj0 + p1)])
                 continue
             else:
                 # Wrap step of even D: the lower position takes sub-rows
@@ -334,8 +481,11 @@ def _ring_fn(
                     pairs = [(ii, jj) for ii in range(h) for jj in range(ns)]
                 else:
                     pairs = [(ii, jj) for ii in range(ns) for jj in range(h, ns)]
-            for ii, jj in pairs:
-                tile(me, bufs[me], ii * p, p, jj * p, p, gj0 + jj * p)
+            per_position.append([(me, visitor, ii * p, p, jj * p, p, gj0 + jj * p)
+                                 for ii, jj in pairs])
+        for args in _interleave(per_position):
+            tile(*args)
+    streams.join()
     return _finish(hits, mesh)
 
 
@@ -368,19 +518,24 @@ def _rect_ring_fn(
     i_limit = i_offset + i_count
     j_limit = j_offset + j_count
     hits = {me: HitBuffer(capacity, mesh.devices[me]) for me in local_i}
-    bufs = dict(zip(mesh.local_positions, blocks_j))
+    streams = _SideStreams(blocks_j)
+    bufs = {me: (b, None) for me, b in zip(mesh.local_positions, blocks_j)}
     for t in range(d_):
-        if t:
-            bufs = _rotate(bufs, mesh)
-        for me in local_i:
-            gj0 = j_offset + ((me + t) % d_) * nd_j
-            for ii in range(nd_i // p_i):
-                for jj in range(nd_j // p_j):
-                    counts = _sub_counts(kernel, indexed_kernel, local_i[me],
-                                         ii * p_i, p_i, bufs[me], jj * p_j, p_j, 0)
-                    _emit(hits[me], counts, threshold,
-                          i_offset + me * nd_i + ii * p_i, gj0 + jj * p_j,
-                          i_limit, j_limit)
+        # Rotation t+1 starts before step t's sub-tiles and is finished
+        # after them; the last step needs none.
+        rotation = _start_rotation(bufs, mesh, streams) if t + 1 < d_ else None
+        for me, ii, jj in _interleave([
+            [(me, ii, jj) for ii in range(nd_i // p_i) for jj in range(nd_j // p_j)]
+            for me in local_i
+        ]):
+            counts = _sub_counts(kernel, indexed_kernel, local_i[me],
+                                 ii * p_i, p_i, bufs[me][0], jj * p_j, p_j, 0)
+            _emit(hits[me], counts, threshold,
+                  i_offset + me * nd_i + ii * p_i,
+                  j_offset + ((me + t) % d_) * nd_j + jj * p_j, i_limit, j_limit)
+        if rotation is not None:
+            bufs = _finish_rotation(rotation, streams)
+    streams.join()
     return _finish(hits, mesh)
 
 

@@ -32,6 +32,7 @@ from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
 from cuking_tpu_torch.ops.king_emit import emit_hits, emit_hits_plain
 from cuking_tpu_torch.ops.king_math import KingCounts, king_from_counts
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+from cuking_tpu_torch.parallel import ring
 from cuking_tpu_torch.parallel.ring import (
     RingMesh,
     all_pairs_sharded,
@@ -368,3 +369,98 @@ def test_rendered_batch_tasks_run_on_the_card(cuda_device, tmp_path):
                      ref.ibs1.tolist(), ref.ibs2.tolist()))
     assert len(got) == len(exp) > 0
     assert got == exp
+
+
+@pytest.mark.gpu
+def test_side_stream_copy_runs_under_the_compute_stream(cuda_device):
+    """The ring's copy between cards, forced onto one card, queues behind
+    neither card's compute: a cell-A-sized block (16,384 rows x 3,128
+    words) is delivered while a spin kernel of ~1 s still holds the compute
+    stream, and it equals the source.  A first copy makes the side streams
+    and the receive block, as the ring's first rotation does (a process's
+    first streams from PyTorch's pool were seen to wait for running
+    kernels); the timed one reuses them, as every later rotation does."""
+    block = torch.randint(-2**31, 2**31 - 1, (2, 16384, 3128), dtype=torch.int32,
+                          device=cuda_device)
+    streams = ring._SideStreams([block])
+    first, _ = streams.copy(block, None, block.device)
+    del first
+    streams.release()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    spin_done = torch.cuda.current_stream().record_event()
+    out, delivered = streams.copy(block, None, block.device)
+    delivered.synchronize()
+    assert not spin_done.query(), "the copy waited for the compute stream"
+    streams.join()
+    torch.cuda.synchronize()
+    assert out.device == block.device and torch.equal(out, block)
+
+
+def _same_rows(got, ref) -> None:
+    assert len(got) == len(ref) > 0
+    for f in ("i_idx", "j_idx", "ibs0", "ibs1", "ibs2"):
+        assert np.array_equal(getattr(got, f), getattr(ref, f)), f
+    assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("positions", [3, 4])
+def test_ring_step_loop_never_waits_for_the_device(cuda_device, monkeypatch, positions):
+    """The ring's step loop with every position on cuda:0, rotations
+    included, under ``set_sync_debug_mode("error")`` until the one read of
+    the counts at its end; the rows equal the cuda engine's."""
+    g = random_genotypes(600, 3_000, missing_rate=0.05, seed=positions, num_related_pairs=4)
+    finish = ring._finish
+
+    def finish_checked(hits, mesh):
+        torch.cuda.set_sync_debug_mode("default")
+        return finish(hits, mesh)
+
+    monkeypatch.setattr(ring, "_finish", finish_checked)
+    mesh = RingMesh([cuda_device] * positions)
+    blocks, _ = ring._pad_and_shard(pack_genotypes(g, PlaneLayout.create(3_000)), 600, mesh, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = ring.all_pairs_presharded(
+            blocks, 600, mesh, panel_counts_cuda, kin_threshold=-2.0,
+            capacity_per_device=1 << 18, sub_panel=64,
+            indexed_kernel=panel_counts_cuda_indexed)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ref = KingEngine.from_genotypes(
+        g, KingConfig(kernel="cuda", device="cuda", panel=128, kin_threshold=-2.0)).run()
+    _same_rows(ring_output_to_resultset(out), ref)
+
+
+@pytest.mark.gpu
+def test_ring_over_cards_stays_inside_the_ring_model(cuda_device):
+    """With two cards or more, a ring of one position per card at 2,048
+    rows per card x 100,000 sites returns the cuda engine's rows, and each
+    card's peak device memory stays inside check_ring_fit's model."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two cards or more")
+    n, sites = 2048 * cards, 100_000
+    layout = PlaneLayout.create(sites)
+    g = random_genotypes(n, sites, missing_rate=0.05, seed=cards, num_related_pairs=4)
+    planes = pack_genotypes(g, layout)
+    base = []
+    for k in range(cards):
+        torch.cuda.synchronize(k)
+        torch.cuda.reset_peak_memory_stats(k)
+        base.append(torch.cuda.memory_allocated(k))
+    out = all_pairs_sharded(planes, n, RingMesh([f"cuda:{k}" for k in range(cards)]),
+                            panel_counts_cuda, kin_threshold=0.0884,
+                            capacity_per_device=1 << 16,
+                            indexed_kernel=panel_counts_cuda_indexed)
+    model = ring_shard_bytes(n, n, True, layout.words, 1024, 1, cards, 1 << 16,
+                             king_model.DEFAULT_MAX_RESULTS)
+    for k in range(cards):
+        torch.cuda.synchronize(k)
+        peak = torch.cuda.max_memory_allocated(k) - base[k]
+        assert peak <= model, (k, peak, model)
+    ref = KingEngine.from_genotypes(
+        g, KingConfig(kernel="cuda", device="cuda", kin_threshold=0.0884)).run()
+    _same_rows(ring_output_to_resultset(out), ref)

@@ -61,6 +61,28 @@ def test_port_tools_import_no_jax():
     assert out[1].strip() == "[]"
 
 
+_RUN_SCALING = """
+import contextlib, io, sys
+sys.path.insert(0, ".")
+from tools import torch_scaling_bench
+with contextlib.redirect_stdout(io.StringIO()):
+    rc = torch_scaling_bench.main(["--device", "cpu", "--devices", "1", "2"])
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "cuking_tpu"))
+print(rc, bad)
+"""
+
+
+def test_scaling_tool_runs_without_jax():
+    """The scaling tool, run through its CPU schedule check, loads neither
+    jax nor cuking_tpu."""
+    out = subprocess.run(
+        [sys.executable, "-c", _RUN_SCALING], cwd=REPO, capture_output=True,
+        text=True, check=True,
+    ).stdout.split(maxsplit=1)
+    assert out[0] == "0"
+    assert out[1].strip() == "[]"
+
+
 def test_chip_smoke_fails_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")

@@ -326,3 +326,265 @@ def test_rotation_hands_tensors_on():
     out = ring._rotate(bufs, mesh)
     assert [out[d] is bufs[(d + 1) % 3] for d in range(3)] == [True] * 3
     assert ring.RingMesh(["cpu", "cpu"], ranks=[0, 1], rank=1).local_positions == (1,)
+
+
+# -- the order of rotations and steps -----------------------------------------
+
+
+def _which(t, blocks):
+    """The index of the block whose content ``t`` holds."""
+    return next(k for k, b in enumerate(blocks) if b.shape == t.shape and torch.equal(b, t))
+
+
+def recording_kernel(log, blocks_i, blocks_j):
+    """The indexed count entry, logging each sub-tile as ("tile", step,
+    position): position me visits block (me + t) mod D at step t."""
+    d = len(blocks_j)
+
+    def kernel(planes_i, i_off, j_off, tri, panel, planes_j, panel_j):
+        me, b = _which(planes_i, blocks_i), _which(planes_j, blocks_j)
+        log.append(("tile", (b - me) % d, me))
+        return panel_counts_cuda_indexed(planes_i, i_off, j_off, tri, panel,
+                                         planes_j=planes_j, panel_j=panel_j)
+
+    return kernel
+
+
+def record_rotations(monkeypatch, log):
+    start, finish = ring._start_rotation, ring._finish_rotation
+
+    def start_(*args):
+        log.append(("start",))
+        return start(*args)
+
+    def finish_(*args):
+        log.append(("finish",))
+        return finish(*args)
+
+    monkeypatch.setattr(ring, "_start_rotation", start_)
+    monkeypatch.setattr(ring, "_finish_rotation", finish_)
+
+
+def check_order(log, num_steps):
+    """Rotation k starts before step k-1's first sub-tile and finishes after
+    its last and before step k's first; never two are in flight."""
+    starts = [i for i, e in enumerate(log) if e[0] == "start"]
+    finishes = [i for i, e in enumerate(log) if e[0] == "finish"]
+    assert len(starts) == len(finishes) == num_steps - 1
+    steps = [[i for i, e in enumerate(log) if e[:2] == ("tile", t)] for t in range(num_steps)]
+    assert all(steps) and len(log) == sum(map(len, steps)) + 2 * (num_steps - 1)
+    for t in range(num_steps - 1):
+        assert steps[t][-1] < steps[t + 1][0]
+        assert starts[t] < steps[t][0]
+        assert steps[t][-1] < finishes[t] < steps[t + 1][0]
+    in_flight = 0
+    for entry in log:
+        in_flight += {"start": 1, "finish": -1}.get(entry[0], 0)
+        assert 0 <= in_flight <= 1
+
+
+def order_genotypes():
+    return random_genotypes(60, SITES, missing_rate=0.1, seed=71, num_related_pairs=4)
+
+
+@pytest.mark.parametrize("num_devices", [2, 3, 4])
+def test_rotation_starts_a_step_ahead(monkeypatch, num_devices):
+    """D = 2 and 4 (with the wrap step) and 3 (without), 60 samples in
+    sub-tiles: each rotation starts before the step whose compute it can
+    hide under and finishes before the step that reads it, one at a time,
+    and the rows equal the JAX ring's."""
+    g = order_genotypes()
+    planes = pack_genotypes(g, PlaneLayout.create(SITES))
+    mesh = ring.RingMesh(["cpu"] * num_devices)
+    blocks, _ = ring._pad_and_shard(planes, len(g), mesh, 1)
+    log = []
+    record_rotations(monkeypatch, log)
+    out = ring.all_pairs_presharded(
+        blocks, len(g), mesh, port_kernel, kin_threshold=0.05, capacity_per_device=4096,
+        sub_panel=8, indexed_kernel=recording_kernel(log, blocks, blocks))
+    check_order(log, ring.ring_num_steps(num_devices))
+    ref = jring.ring_output_to_resultset(
+        jax_out(g, num_devices, kin_threshold=0.05, capacity_per_device=4096))
+    assert len(ref) > 0
+    assert_same(ring.ring_output_to_resultset(out), ref)
+
+
+def rect_planes(g, sm, layout, pack):
+    return (pack(g[sm.i_begin:sm.i_begin + sm.num_rows], layout),
+            pack(g[sm.j_begin:sm.j_begin + sm.num_cols], layout))
+
+
+def test_rect_rotation_starts_a_step_ahead(monkeypatch):
+    """The rectangular ring of a split-2 off-diagonal shard on 4 positions:
+    D steps, D - 1 rotations, each started before the step it can overlap
+    and finished before the step that reads it; keep-all rows equal the
+    JAX ring's."""
+    g = order_genotypes()
+    sm = Submatrix.create(len(g), 2, 1)
+    assert not sm.is_diagonal
+    planes_i, planes_j = rect_planes(g, sm, PlaneLayout.create(SITES), pack_genotypes)
+    mesh = ring.RingMesh(["cpu"] * 4)
+    blocks_i, _ = ring._pad_and_shard(planes_i, sm.num_rows, mesh, 1)
+    blocks_j, _ = ring._pad_and_shard(planes_j, sm.num_cols, mesh, 1)
+    log = []
+    record_rotations(monkeypatch, log)
+    rect = dict(i_offset=sm.i_begin, j_offset=sm.j_begin, kin_threshold=-2.0,
+                capacity_per_device=4096, sub_panel=4)
+    out = ring.rect_pairs_presharded(
+        blocks_i, blocks_j, sm.num_rows, sm.num_cols, mesh, port_kernel,
+        indexed_kernel=recording_kernel(log, blocks_i, blocks_j), **rect)
+    check_order(log, 4)
+    jax_i, jax_j = rect_planes(g, sm, JaxLayout.create(SITES, words_multiple=16), jax_pack)
+    ref = jring.ring_output_to_resultset(jring.rect_pairs_sharded(
+        jax_i, jax_j, sm.num_rows, sm.num_cols,
+        Mesh(np.array(jax.devices()[:4]), axis_names=("samples",)), jax_kernel, **rect))
+    assert len(ref) == sm.num_rows * sm.num_cols
+    assert_same(ring.ring_output_to_resultset(out), ref)
+
+
+class FakeDist:
+    """torch.distributed's point-to-point calls for one rank of a ring whose
+    other ranks are simulated: posts and waits are logged as a rotation's
+    start and finish, and a receive is filled, when waited on, with the
+    block its sender holds at that rotation (position d receives block
+    (d + k) mod D at rotation k)."""
+
+    isend, irecv = "isend", "irecv"
+
+    def __init__(self, log, blocks, rotations_per_run):
+        self.log, self.blocks, self.per_run = log, blocks, rotations_per_run
+        self.posted = self.waited = 0
+
+    @staticmethod
+    def P2POp(op, tensor, peer, tag=0):
+        return op, tensor, peer, tag
+
+    def batch_isend_irecv(self, ops):
+        self.posted += 1
+        self.log.append(("start",))
+        return [FakeWork(self, ops, (self.posted - 1) % self.per_run + 1)]
+
+
+class FakeWork:
+    def __init__(self, fake, ops, rotation):
+        self.fake, self.ops, self.rotation = fake, ops, rotation
+
+    def wait(self):
+        self.fake.waited += 1
+        self.fake.log.append(("finish",))
+        d = len(self.fake.blocks)
+        for op, tensor, _, tag in self.ops:
+            if op == "irecv":
+                tensor.copy_(self.fake.blocks[(tag + self.rotation) % d])
+
+
+@pytest.mark.parametrize("ranks", [[0, 1], [0, 1, 2], [0, 0, 1, 1], [0, 1, 0, 1]])
+def test_rank_rotation_posts_a_step_ahead(monkeypatch, ranks):
+    """Each rank of a ring across processes, against simulated peers: the
+    transfers of rotation t+1 are posted before step t's first sub-tile and
+    waited on after its last and before step t+1's; the ranks' rows merged
+    equal the JAX ring's."""
+    g = order_genotypes()
+    d = len(ranks)
+    planes = pack_genotypes(g, PlaneLayout.create(SITES))
+    blocks, _ = ring._pad_and_shard(planes, len(g), ring.RingMesh(["cpu"] * d), 1)
+    parts = []
+    for rank in sorted(set(ranks)):
+        mesh = ring.RingMesh(["cpu"] * d, ranks=ranks, rank=rank)
+        log = []
+        monkeypatch.setattr(ring, "dist", FakeDist(log, blocks, ring.ring_num_steps(d) - 1))
+        out = ring.all_pairs_presharded(
+            [blocks[p] for p in mesh.local_positions], len(g), mesh, port_kernel,
+            kin_threshold=0.05, capacity_per_device=4096, sub_panel=8,
+            indexed_kernel=recording_kernel(log, blocks, blocks))
+        check_order(log, ring.ring_num_steps(d))
+        parts.append(ring.ring_output_local_resultset(out))
+    ref = jring.ring_output_to_resultset(
+        jax_out(g, d, kin_threshold=0.05, capacity_per_device=4096))
+    assert len(ref) > 0
+    assert_same(ResultSet.concat_and_sort(parts), ref)
+
+
+def test_overflow_retry_starts_with_no_rotation_in_flight(monkeypatch):
+    """A rank whose first run overflows its hit buffers re-runs the ring;
+    when the retry starts, every transfer the first run posted has been
+    waited on, and the ranks' rows merged equal the JAX ring's keep-all."""
+    g = random_genotypes(32, 200, missing_rate=0.0, seed=34)
+    ranks = [0, 1, 0, 1]
+    planes = pack_genotypes(g, PlaneLayout.create(200))
+    blocks, _ = ring._pad_and_shard(planes, 32, ring.RingMesh(["cpu"] * 4), 1)
+    ring_fn = ring._ring_fn
+    parts = []
+    for rank in (0, 1):
+        fake = FakeDist([], blocks, ring.ring_num_steps(4) - 1)
+        monkeypatch.setattr(ring, "dist", fake)
+        in_flight = []
+
+        def run(*args, **kwargs):
+            in_flight.append(fake.posted - fake.waited)
+            return ring_fn(*args, **kwargs)
+
+        monkeypatch.setattr(ring, "_ring_fn", run)
+        mesh = ring.RingMesh(["cpu"] * 4, ranks=ranks, rank=rank)
+        out = ring.all_pairs_presharded(
+            [blocks[p] for p in mesh.local_positions], 32, mesh, port_kernel,
+            kin_threshold=-2.0, capacity_per_device=8, max_results=1 << 20)
+        assert in_flight == [0, 0] and out.capacity_per_device > 8
+        assert fake.posted == fake.waited == 2 * (ring.ring_num_steps(4) - 1)
+        parts.append(ring.ring_output_local_resultset(out, 1 << 20))
+    ref = jring.ring_output_to_resultset(
+        jax_out(g, 4, kin_threshold=-2.0, capacity_per_device=8, max_results=1 << 20),
+        1 << 20)
+    assert_same(ResultSet.concat_and_sort(parts), ref)
+
+
+def check_round_robin(log, num_positions):
+    """Within each step the positions take turns: the k-th sub-tile of every
+    position that has one comes before any position's (k+1)-th."""
+    tiles = [entry[1:] for entry in log if entry[0] == "tile"]
+    for t in sorted({t for t, _ in tiles}):
+        order = [me for s, me in tiles if s == t]
+        seen = {me: 0 for me in order}
+        turns = []
+        for me in order:
+            turns.append(seen[me])
+            seen[me] += 1
+        assert turns == sorted(turns), (t, order[:3 * num_positions])
+        assert len(seen) == num_positions
+
+
+@pytest.mark.parametrize("num_devices", [2, 3, 4])
+def test_step_tiles_take_turns_over_positions(num_devices):
+    """Each step's sub-tiles are queued round robin over the positions, so
+    a card of a later position gets work from the step's start; the rows
+    equal the oracle's."""
+    g = order_genotypes()
+    planes = pack_genotypes(g, PlaneLayout.create(SITES))
+    mesh = ring.RingMesh(["cpu"] * num_devices)
+    blocks, _ = ring._pad_and_shard(planes, len(g), mesh, 1)
+    log = []
+    out = ring.all_pairs_presharded(
+        blocks, len(g), mesh, port_kernel, kin_threshold=0.05, capacity_per_device=4096,
+        sub_panel=8, indexed_kernel=recording_kernel(log, blocks, blocks))
+    check_round_robin(log, num_devices)
+    assert_same(ring.ring_output_to_resultset(out), oracle(g, 0.05))
+
+
+def test_rect_step_tiles_take_turns_over_positions():
+    g = order_genotypes()
+    sm = Submatrix.create(len(g), 2, 1)
+    planes_i, planes_j = rect_planes(g, sm, PlaneLayout.create(SITES), pack_genotypes)
+    mesh = ring.RingMesh(["cpu"] * 3)
+    blocks_i, _ = ring._pad_and_shard(planes_i, sm.num_rows, mesh, 1)
+    blocks_j, _ = ring._pad_and_shard(planes_j, sm.num_cols, mesh, 1)
+    log = []
+    out = ring.rect_pairs_presharded(
+        blocks_i, blocks_j, sm.num_rows, sm.num_cols, mesh, port_kernel,
+        i_offset=sm.i_begin, j_offset=sm.j_begin, kin_threshold=-2.0,
+        capacity_per_device=4096, sub_panel=4,
+        indexed_kernel=recording_kernel(log, blocks_i, blocks_j))
+    check_round_robin(log, 3)
+    ref = oracle(g, -2.0)
+    keep = (ref.i_idx < sm.num_rows) & (ref.j_idx >= sm.j_begin)
+    assert_same(ring.ring_output_to_resultset(out), ResultSet(*(
+        getattr(ref, f)[keep] for f in ("i_idx", "j_idx", "kin", "ibs0", "ibs1", "ibs2"))))

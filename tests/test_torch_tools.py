@@ -1,10 +1,14 @@
 """The port's repo-level tools on the CPU: ``tools/torch_baseline_parity.py``
 (the twin of ``tools/baseline_parity.py``) through the port's CLI with
-``--device cpu``, its oracle against the JAX tool's, bit for bit, and
+``--device cpu``, its oracle against the JAX tool's, bit for bit,
 ``tools/torch_capacity_plan.py``'s split factor against the CLI's own
-memory check, ``check_engine_fit``."""
+memory check, ``check_engine_fit``, and ``tools/torch_scaling_bench.py``'s
+schedule check and planted hits against ``tools/scaling_bench.py``'s."""
 
 import importlib
+import json
+import os
+import re
 
 import numpy as np
 import pytest
@@ -19,6 +23,7 @@ from cuking_tpu_torch.utils.status import InvalidArgumentError
 parity = importlib.import_module("tools.torch_baseline_parity")
 jax_parity = importlib.import_module("tools.baseline_parity")
 plan_tool = importlib.import_module("tools.torch_capacity_plan")
+scaling = importlib.import_module("tools.torch_scaling_bench")
 
 SMALL = ["--samples", "96", "--sites", "2000"]
 
@@ -108,3 +113,66 @@ def test_step_time_is_linear_in_words():
     assert plan_tool.step_ms(3_128) == pytest.approx(1.11)
     assert plan_tool.step_ms(31_252) == pytest.approx(10.6)
     assert plan_tool.step_ms((3_128 + 31_252) // 2) == pytest.approx((1.11 + 10.6) / 2)
+
+
+def test_scaling_bench_validates_the_schedule_on_the_cpu(capsys):
+    """D = 1..4 on the plain path: the same 52 planted hits at every D, the
+    ring's steps and sub-tiles as scheduled, and the JSON's keys; no rate or
+    efficiency is reported for a CPU run."""
+    from cuking_tpu_torch.parallel.ring import ring_num_steps
+
+    assert scaling.main(["--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(report) == {"weak_scaling", "overlap", "target_efficiency", "device"}
+    rows = report["weak_scaling"]
+    assert [r["devices"] for r in rows] == [1, 2, 3, 4]
+    assert {r["hits"] for r in rows} == {scaling.expected_hits(scaling.CPU_FAMILIES)} == {52}
+    for r in rows:
+        assert r["ring_steps"] == ring_num_steps(r["devices"])
+        assert r["sub_tiles"] == scaling.schedule_sub_tiles(r["devices"], 2)
+        assert not any("per_sec" in k or "efficiency" in k for k in r)
+    assert report["overlap"] is None and report["device"]["platform"] == "cpu"
+
+
+def test_scaling_bench_refuses_without_a_card(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert scaling.main(["--devices", "1", "2"]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_scaling_bench_plants_the_jax_tools_families():
+    """The families, threshold, default sizes and expected hit counts read
+    from tools/scaling_bench.py as text (importing it would load jax's
+    platform override): 32 families of 4 on the accelerator and 8 on the
+    CPU, each plus the 4 pairs of row 0's clone in the last row."""
+    path = os.path.join(os.path.dirname(os.path.dirname(__file__)), "tools", "scaling_bench.py")
+    with open(path) as f:
+        src = f.read()
+    fams = [int(n) for n in re.findall(r"for fam in range\((\d+)\):", src)]
+    assert fams == [scaling.GPU_FAMILIES, scaling.CPU_FAMILIES]
+    assert re.findall(r"src = fam \* (\d+)", src) == [str(scaling.FAMILY_SIZE)] * 2
+    assert re.findall(r"for m in range\(1, (\d+)\):", src) == [str(scaling.FAMILY_SIZE)] * 2
+    for fam, n, per in re.findall(r"expected_hits = (\d+) \* (\d+) \* (\d+) // 2", src):
+        assert int(fam) * int(n) * int(per) // 2 + 4 == scaling.expected_hits(int(fam))
+    assert "expected_d = expected_hits + 4" in src
+    assert f"threshold = {scaling.THRESHOLD}" in src
+    assert "16384 if on_tpu else 64" in src and "100_000 if on_tpu else 2_000" in src
+    assert "missing_rate=0.05, seed=1" in src
+    assert scaling.expected_hits(scaling.GPU_FAMILIES) == 196
+
+
+def test_scaling_bench_counts_transfers_under_their_own_cards_kernels():
+    """A transfer is covered only by count kernels on its own card, and
+    overlapping kernels count once."""
+    intervals = [
+        (0, "transfer", 0.0, 10.0), (0, "kernel", 2.0, 6.0), (0, "kernel", 4.0, 8.0),
+        (1, "kernel", 0.0, 10.0), (1, "transfer", 20.0, 30.0),
+    ]
+    got = scaling.covered_share(intervals)
+    assert got["num_transfers"] == 2
+    assert got["transfer_ms"] == pytest.approx(0.020)
+    assert got["covered_ms"] == pytest.approx(0.006)
+    assert got["overlap_fraction"] == pytest.approx(0.3)
+    assert scaling.covered_share([(0, "kernel", 0.0, 1.0)]) is None
+    assert scaling.schedule_sub_tiles(4, 16) == 4 * (136 + 256) + 2 * 256
+    assert scaling.schedule_sub_tiles(2, 1) == 2 * 1 + 2

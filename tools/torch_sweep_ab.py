@@ -15,6 +15,9 @@ root it measures, on ``cuda:0``:
   duplicate pairs (threshold 0.0884, 528 panel-pair steps): ``--repeats``
   sweeps by the host clock ending in ``torch.cuda.synchronize()``, and one
   profiled sweep's device busy share (kernel time over wall time).
+* **Ring A**: cell A through a ring of 4 positions, all on ``cuda:0``
+  (``chip_smoke.py`` phase 6): ``--repeats`` sweeps by the host clock, each
+  returning the 64 planted pairs.
 * **Early stop**: the same planes at threshold -2.0 (keep all) with the
   default ``max_results`` (2^20 result slots): every step's 1,048,576 hits
   pass ``max_results`` within the first 64 steps.  It reports the steps
@@ -91,7 +94,13 @@ def measure(repeats: int) -> dict:
     from cuking_tpu_torch.ops import king_emit
     from cuking_tpu_torch.ops.bitset import PlaneLayout
     from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda, panel_counts_cuda_indexed
-    from cuking_tpu_torch.parallel.ring import RingMesh, all_pairs_sharded
+    from cuking_tpu_torch.parallel.ring import (
+        RingMesh,
+        _pad_and_shard,
+        all_pairs_presharded,
+        all_pairs_sharded,
+        ring_output_to_resultset,
+    )
     from cuking_tpu_torch.utils.status import ResourceExhaustedError
     from cuking_tpu_torch.utils.stopwatch import StageLogger
     from cuking_tpu_torch.utils.synthetic import random_planes
@@ -111,6 +120,22 @@ def measure(repeats: int) -> dict:
     if got != sorted(planted):
         raise RuntimeError(f"cell A returned {len(got)} pairs, not the 64 planted")
     profiled_s, busy = busy_share(engine.run)
+
+    n = storage.submatrix.num_rows
+    mesh = RingMesh(["cuda:0"] * 4)
+    blocks, _ = _pad_and_shard(storage.planes, n, mesh, 1)
+    ring_sweeps = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = all_pairs_presharded(blocks, n, mesh, panel_counts_cuda, kin_threshold=0.0884,
+                                   indexed_kernel=panel_counts_cuda_indexed)
+        torch.cuda.synchronize()
+        ring_sweeps.append(time.perf_counter() - t)
+        rs = ring_output_to_resultset(out)
+        if sorted(zip(rs.i_idx.tolist(), rs.j_idx.tolist())) != sorted(planted):
+            raise RuntimeError(f"ring A returned {len(rs)} pairs, not the 64 planted")
+    del blocks, out
 
     over = KingEngine(storage, KingConfig(kernel="cuda", device="cuda", kin_threshold=-2.0),
                       logger=quiet)
@@ -145,6 +170,7 @@ def measure(repeats: int) -> dict:
         raise RuntimeError(f"the ring did not retry past {first} slots with every pair")
     return {
         "cell_a_sweep_s": sweeps, "cell_a_profiled_s": profiled_s, "cell_a_busy": busy,
+        "ring_a_sweep_s": ring_sweeps,
         "early_stop": {"steps": steps, "queued": queued, "error_s": error_s,
                        "drained_s": drained_s},
         "ring_retry": {"peak_bytes": peak, "planes_bytes": planes.nbytes,
@@ -195,7 +221,9 @@ def main(argv=None) -> int:
         stop, ring = run["early_stop"], run["ring_retry"]
         print(f"{root}: cell A sweeps " + ", ".join(f"{s:.4f}" for s in run["cell_a_sweep_s"])
               + f" s, profiled {run['cell_a_profiled_s']:.4f} s with the device "
-              f"{100 * run['cell_a_busy']:.2f}% busy; early stop after {stop['queued']} of "
+              f"{100 * run['cell_a_busy']:.2f}% busy; ring A sweeps "
+              + ", ".join(f"{s:.4f}" for s in run["ring_a_sweep_s"])
+              + f" s; early stop after {stop['queued']} of "
               f"{stop['steps']} steps queued, error at {stop['error_s']:.4f} s, device done "
               f"at {stop['drained_s']:.4f} s; ring retry peak {ring['peak_bytes']:,} B "
               f"(planes {ring['planes_bytes']:,}, first hits {ring['first_hits_bytes']:,}, "
