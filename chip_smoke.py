@@ -9,6 +9,11 @@ Phases (any failure exits nonzero):
 
 0. Environment: torch/CUDA versions, ``nvcc --version``, the card's name and
    power limit.
+0b. Before this process makes its CUDA context: the memory limit that the
+   CLI's own ``check_engine_fit`` reads, in a fresh process at that call (on
+   ``tests/golden/input.parquet``; the process exits there), as a Batch
+   task's would, printed beside the limit that the cohort plan assumes
+   (``tools/torch_capacity_plan.H100_FREE_MEMORY``).
 1. Build the CUDA count kernels from ``cuking_tpu_torch/csrc`` (nvcc); print
    the build time and ``ptxas -v``'s registers and spills.
 2. The wgmma count kernel and its yardstick, the AND + popcount kernel,
@@ -102,6 +107,31 @@ Phases (any failure exits nonzero):
     one position per card: the engine's rows, the sweep time, each card's
     peak memory against ``check_ring_fit``'s model, and the overlap share.
     On one card it prints that it did not run, and why.
+13a. The main path at a deployment's shard size: a 69,632 x 1,000,000
+    shard (31,252 words; 4,352,278,528 plane words, 17.41 GB) at split 1 and
+    threshold 0.0884, from host planes through the engine's own upload, with
+    clone families of 4 at rows 0-3, across the first het row past word
+    2^31 and the first hom row past word 2^32, in the last panel, and row 0
+    cloned into the last row (``tools/torch_shard_at_scale.py``).  Exactly
+    the planted pairs must come out (kin == 0.5 bit for bit, ibs0 == ibs1
+    == 0, ibs2 the row's defined sites, each equal to the numpy oracle),
+    with 2,346 launches of each kernel and the peak device memory inside
+    ``check_engine_fit``'s model; the last diagonal and the (first, last)
+    panel pairs on the engine's device planes must equal the five-block
+    plain version.  The sweep time, pairs/s and ms per step are printed
+    beside phase 2's isolated 1M-site pair.
+13b. The shard at the fit limit: the most rows at 1,000,000 sites that
+    ``check_engine_fit`` admits at the default ``KingConfig`` with the free
+    memory read just before (or, if the host's available memory holds
+    fewer, the host's, said so), uploaded through ``planes_dev`` (timed,
+    with the host RSS before and after), then keep-all into a
+    ``max_results`` buffer: ResourceExhausted within (4 + 1) x 64 steps, no
+    out-of-memory error, the peak inside the model (the headroom left is
+    printed).  On the same device planes the last diagonal and the
+    (first, last) pairs equal the AND + popcount yardstick on all six
+    counters and the numpy oracle on sampled pairs, tile corners included.
+    The peak host RSS is printed against ``cloud/batch_submit.py``'s planes
+    term.  Phase 13's time is printed.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
@@ -241,6 +271,40 @@ def phase_env() -> str:
     return smi.splitlines()[0]
 
 
+# Runs the CLI with its arguments up to its check_engine_fit call, prints the
+# free memory and the limit that the check reads there as one JSON line, and
+# exits.
+_CLI_LIMIT_PROBE = """
+import json, os, sys, torch
+from cuking_tpu_torch import cli
+from cuking_tpu_torch.utils import hbm
+def limit(device, read=hbm.device_bytes_limit):
+    print(json.dumps([torch.cuda.mem_get_info(device)[0], read(device)]), flush=True)
+    os._exit(0)
+hbm.device_bytes_limit = limit
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def phase_task_limit(card: str) -> None:
+    from cuking_tpu_torch.utils.hbm import _USABLE_FRACTION
+    from tools.torch_capacity_plan import H100_FREE_MEMORY
+
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [sys.executable, "-c", _CLI_LIMIT_PROBE, "--input_uri",
+             f"{REPO}/tests/golden/input.parquet", "--output_uri", f"{tmp}/out.parquet",
+             "--kin_threshold", "0.0884"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and proc.stdout.strip(),
+          f"the CLI did not reach check_engine_fit (exit {proc.returncode}):\n{proc.stderr}")
+    free_b, limit = json.loads(proc.stdout.strip().splitlines()[-1])
+    planned = int(H100_FREE_MEMORY * _USABLE_FRACTION)
+    say(f"phase 0b: the CLI's check_engine_fit read {free_b:,} B free and a limit of "
+        f"{limit:,} B in a fresh process; the cohort plan assumes {H100_FREE_MEMORY:,} B "
+        f"free, a limit of {planned:,} B ({limit - planned:+,} B) ({card})")
+
+
 def phase_build() -> None:
     from cuking_tpu_torch.ops import king_cuda
 
@@ -271,10 +335,28 @@ def count_bound(ni: int, nj: int, words: int) -> tuple[float, str]:
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def check_oracle_pairs(counts, planes_i, i_off: int, planes_j, j_off: int, layout,
+                       pairs, name: str) -> None:
+    """Holds the counters ``counts`` (six [NI, NJ]) of rows ``i_off + x`` of
+    host planes ``planes_i`` against rows ``j_off + y`` of ``planes_j`` to
+    the numpy oracle at each pair (x, y) of ``pairs``."""
+    from cuking_tpu_torch.ops.bitset import planes_to_genotypes
+    from cuking_tpu_torch.ops.oracle import oracle_counts
+
+    got = [c.cpu().numpy() for c in counts]
+    gi = planes_to_genotypes(planes_i[:, [i_off + int(x) for x, _ in pairs]], layout)
+    gj = planes_to_genotypes(planes_j[:, [j_off + int(y) for _, y in pairs]], layout)
+    for n, (x, y) in enumerate(pairs):
+        exp = oracle_counts(gi[n:n + 1], gj[n:n + 1])
+        for k, e in enumerate(exp):
+            check(int(got[k][x, y]) == int(e[0, 0]),
+                  f"{name}: oracle pair ({x}, {y}): counter {exp._fields[k]}")
+
+
 def phase_kernel(card: str) -> dict:
     import torch
 
-    from cuking_tpu_torch.ops.bitset import PlaneLayout, planes_to_genotypes
+    from cuking_tpu_torch.ops.bitset import PlaneLayout
     from cuking_tpu_torch.ops.king_cuda import (
         five_block_indicators,
         panel_counts_cuda,
@@ -283,7 +365,6 @@ def phase_kernel(card: str) -> dict:
         panel_counts_popc_indexed,
     )
     from cuking_tpu_torch.ops.king_mm import indicator_planes, panel_counts_matmul
-    from cuking_tpu_torch.ops.oracle import oracle_counts
     from cuking_tpu_torch.utils.synthetic import edge_planes, random_planes
 
     rng = np.random.default_rng(SEED)
@@ -358,17 +439,9 @@ def phase_kernel(card: str) -> dict:
             pairs += [(int(c), r) for c in rng.integers(0, ni, 4)]
         if tri:
             pairs = [(min(x, y), max(x, y)) for x, y in pairs if x != y]
-        ii, jj = zip(*pairs)
-        counts = [c.cpu().numpy() for c in got]
-        gi = planes_to_genotypes(pi_np[:, [i_off + int(x) for x in ii]], lay)
-        gj = planes_to_genotypes(pj_np_c[:, [j_off + int(y) for y in jj]], lay)
-        for n, (x, y) in enumerate(zip(ii, jj)):
-            exp = oracle_counts(gi[n:n + 1], gj[n:n + 1])
-            for k, e in enumerate(exp):
-                check(int(counts[k][x, y]) == int(e[0, 0]),
-                      f"{name}: oracle pair ({x}, {y}): counter {got._fields[k]}")
+        check_oracle_pairs(got, pi_np, i_off, pj_np_c, j_off, lay, pairs, name)
         say(f"phase 2: {name}: six counters equal the five-block and 9-block plain "
-            f"versions (kernel and AND+popc kernel) and {len(ii)} oracle pairs")
+            f"versions (kernel and AND+popc kernel) and {len(pairs)} oracle pairs")
 
     def timings(planes, words: int, iters: int) -> dict:
         """CUDA-event times at the engine's shape: an off-diagonal 1024 x 1024
@@ -1346,6 +1419,191 @@ def phase_cards(card: str, storage, engine_rs) -> dict:
     return launches
 
 
+# Phase 13: the main path at a deployment's shard size, 1,000,000 sites.
+DEPLOY_SITES = 1_000_000
+SHARD_ROWS = 69_632  # 68 panels; its het and hom planes cross words 2^31 and 2^32
+
+
+def compare_panel_pairs(planes, pairs, reference, what: str) -> int:
+    """Holds the wgmma kernel's indexed entry against ``reference``
+    (``(planes, i_off, j_off) -> KingCounts``) on the 1024 x 1024 panel
+    pairs ``pairs`` (name, i_off, j_off, tri) of ``planes``, all six
+    counters (only i < j of a ``tri`` pair).  Returns the largest
+    difference (0)."""
+    import torch
+
+    from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda_indexed
+
+    max_err = 0
+    for name, i_off, j_off, tri in pairs:
+        got = panel_counts_cuda_indexed(planes, i_off, j_off, tri, 1024)
+        ref = reference(planes, i_off, j_off)
+        keep = torch.ones((1024, 1024), dtype=torch.bool, device=planes.device).triu(1)
+        for k, (g, e) in enumerate(zip(got, ref)):
+            if tri:
+                g, e = g[keep], e[keep]
+            err = int((g.long() - e.long()).abs().max())
+            max_err = max(max_err, err)
+            check(err == 0, f"{name}: counter {got._fields[k]} differs from {what} by {err}")
+    return max_err
+
+
+def phase_shard(card: str, isolated_1m_ms: float) -> tuple[dict, dict]:
+    """Phase 13a: a whole 69,632 x 1,000,000 shard through the engine."""
+    import torch
+
+    from cuking_tpu_torch.models.king import KingConfig
+    from cuking_tpu_torch.ops.king_cuda import panel_counts_five_block
+    from cuking_tpu_torch.utils.synthetic import rows_past_word_limits
+    from tools.torch_shard_at_scale import deployment_storage, sweep_and_check
+
+    dev = torch.device("cuda", 0)
+    t = time.perf_counter()
+    storage, planted = deployment_storage(SHARD_ROWS, DEPLOY_SITES, SEED + 13, dev)
+    make_s = time.perf_counter() - t
+    words = storage.layout.words
+    het_row, hom_row = rows_past_word_limits(SHARD_ROWS, words)
+    say(f"phase 13a: {SHARD_ROWS} x {DEPLOY_SITES} ({words} words, "
+        f"{storage.planes.size:,} plane words, {storage.planes.nbytes / 1e9:.2f} GB) made "
+        f"in {make_s:.1f} s; het rows from {het_row} and hom rows from {hom_row} lie past "
+        f"words 2^31 and 2^32; {len(planted)} planted pairs")
+    reset_launches()
+    engine, r = sweep_and_check(storage, planted, KingConfig(kernel="cuda", device="cuda"))
+    launches = read_launches("the 1M-site shard")
+    panels = SHARD_ROWS // 1024
+    steps = r["steps"]
+    check(steps == panels * (panels + 1) // 2, f"{steps} steps")
+    check(launches == {k: steps for k in KERNELS}, f"{launches} launches in {steps} steps")
+    last = SHARD_ROWS - 1024
+    max_err = compare_panel_pairs(
+        engine.planes_dev, [("13a last diagonal pair", last, last, 1),
+                            ("13a (first, last) pair", 0, last, 0)],
+        lambda p, i, j: panel_counts_five_block(p[:, i:i + 1024], p[:, j:j + 1024]),
+        "the five-block plain version")
+    say(f"phase 13a: exactly the {len(planted)} planted pairs, kin == 0.5, ibs0 == ibs1 == "
+        f"0, ibs2 == defined sites, each equal to the numpy oracle; {launches} kernel "
+        f"launches; the last diagonal and the (first, last) panel pairs equal the "
+        f"five-block plain version on the engine's device planes")
+    say(f"phase 13a: upload {r['upload_s']:.2f} s "
+        f"({storage.planes.nbytes / r['upload_s'] / 1e9:.1f} GB/s); sweep "
+        f"{r['sweep_s']:.3f} s, {r['pairs_per_s']:,.0f} pairs/s, {r['step_ms']:.3f} ms per "
+        f"step (phase 2's isolated 1M-site pair {isolated_1m_ms:.3f} ms); peak device memory "
+        f"{r['peak_device_bytes'] / 2**20:,.1f} MiB, the model "
+        f"{r['model_bytes'] / 2**20:,.1f} MiB ({card})")
+    return launches, {"sweep_s": r["sweep_s"], "step_ms": r["step_ms"], "max_abs_err": max_err}
+
+
+def phase_fit_limit(card: str) -> tuple[dict, int, dict]:
+    """Phase 13b: the largest shard at 1,000,000 sites that check_engine_fit
+    admits on this card, keep-all into a max_results buffer."""
+    import gc
+
+    import torch
+
+    from cuking_tpu_torch.models import king as king_model
+    from cuking_tpu_torch.models.king import DEFAULT_MAX_RESULTS, KingConfig, KingEngine
+    from cuking_tpu_torch.ops.bitset import PlaneLayout
+    from cuking_tpu_torch.ops.king_cuda import (
+        panel_counts_cuda_indexed,
+        panel_counts_popc_indexed,
+    )
+    from cuking_tpu_torch.parallel.submatrix import Submatrix
+    from cuking_tpu_torch.utils.hbm import check_engine_fit
+    from cuking_tpu_torch.utils.status import ResourceExhaustedError
+    from cuking_tpu_torch.utils.stopwatch import StageLogger
+    from tools.torch_shard_at_scale import (
+        deployment_storage,
+        fit_limit_rows,
+        peak_within_model,
+        rss_bytes,
+        timed_upload,
+    )
+
+    dev = torch.device("cuda", 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    default = KingConfig(device="cuda")
+    size = fit_limit_rows(dev, default)
+    rows, limit = size["rows"], size["bytes_limit"]
+    check(rows > 0, "not one panel fits")
+    say(f"phase 13b: the card's free memory {size['free_bytes']:,} B of "
+        f"{size['total_bytes']:,} B, usable {limit:,} B; the host's available memory "
+        f"{size['host_available_bytes'] / 2**30:.1f} GiB (settled after "
+        f"{size['host_settle_s']:.1f} s) holds {size['host_rows']:,} rows of planes; " + (
+            f"check_engine_fit admits {rows:,} rows" if size["rows_set_by"] == "card" else
+            f"the host, not the card, set the size: {rows:,} rows"))
+    words = PlaneLayout.create(DEPLOY_SITES).words
+    check_engine_fit(rows, words, Submatrix.create(rows, 1, 0), default, 1,
+                     bytes_limit=limit)
+    t = time.perf_counter()
+    storage, _ = deployment_storage(rows, DEPLOY_SITES, SEED + 14, dev, families=False)
+    make_s = time.perf_counter() - t
+    cfg = KingConfig(kernel="cuda", device="cuda", kin_threshold=-2.0,
+                     result_capacity=DEFAULT_MAX_RESULTS)
+    engine = KingEngine(storage, cfg, logger=StageLogger(enabled=False))
+    up = timed_upload(engine)
+    upload_s, rss_before, rss_after = up["upload_s"], up["rss_before"], up["rss_after"]
+    steps = len(engine._panel_pair_params())
+    bound = (king_model.LIMIT_CHECK_WINDOW + 1) * king_model.LIMIT_CHECK_STEPS
+    reset_launches()
+    t = time.perf_counter()
+    try:
+        engine.run()
+        check(False, "the keep-all sweep of the fit-limit shard did not pass max_results")
+    except ResourceExhaustedError as e:
+        error_s = time.perf_counter() - t
+        check("--max_results" in str(e), f"the error is not the engine's: {e}")
+    launches = read_launches("the fit-limit shard")
+    torch.cuda.synchronize()
+    drained_s = time.perf_counter() - t
+    check(launches["king_emit"] <= bound < steps,
+          f"{launches['king_emit']} of {steps} steps queued before the error, more than "
+          f"{bound}")
+    peak, model = peak_within_model(engine, up["base"])
+    free_after = torch.cuda.mem_get_info(dev)[0]
+
+    # The last panel pairs on the same device planes: the kernel against the
+    # AND + popcount yardstick, and against the oracle on sampled pairs.
+    planes = engine.planes_dev
+    last = rows - 1024
+    pairs = [("13b last diagonal pair", last, last, 1), ("13b (first, last) pair", 0, last, 0)]
+    max_err = compare_panel_pairs(
+        planes, pairs, lambda p, i, j: panel_counts_popc_indexed(p, i, j, 0, 1024),
+        "the AND + popcount yardstick")
+    rng = np.random.default_rng(SEED + 14)
+    corners = [(0, 1), (0, 63), (0, 1023), (127, 128), (127, 191), (1022, 1023), (128, 1023),
+               (511, 512), (895, 960)]
+    sampled = 0
+    for name, i_off, j_off, tri in pairs:
+        cells = corners + ([] if tri else [(1023, 0), (1023, 1023), (64, 63), (1023, 512)])
+        cells += [tuple(sorted(p)) if tri else tuple(p)
+                  for p in rng.integers(0, 1024, (32, 2)).tolist() if not tri or p[0] != p[1]]
+        check_oracle_pairs(panel_counts_cuda_indexed(planes, i_off, j_off, tri, 1024),
+                           storage.planes, i_off, storage.planes, j_off, storage.layout,
+                           cells, name)
+        sampled += len(cells)
+    del planes, engine
+    rss_peak = rss_bytes()[1]
+    planes_term = 74_096 << 20  # cloud/batch_submit.py's memory comment
+    say(f"phase 13b: {rows:,} x {DEPLOY_SITES:,} ({storage.planes.nbytes / 1e9:.2f} GB of "
+        f"planes) made in {make_s:.1f} s, uploaded through planes_dev in {upload_s:.2f} s "
+        f"({storage.planes.nbytes / upload_s / 1e9:.1f} GB/s; host RSS {rss_before[0] / 2**20:,.0f} "
+        f"MiB before, {rss_after[0] / 2**20:,.0f} MiB after, peak {rss_after[1] / 2**20:,.0f} MiB)")
+    say(f"phase 13b: keep-all into {DEFAULT_MAX_RESULTS:,} slots: ResourceExhausted with "
+        f"{launches['king_emit']} of {steps:,} steps queued (at most {bound}), "
+        f"{error_s:.3f} s after the start, the device ended {drained_s:.3f} s after it; no "
+        f"out-of-memory error; peak device memory {peak / 2**20:,.1f} MiB, the model "
+        f"{model / 2**20:,.1f} MiB (planes + {(model - storage.planes.nbytes) / 2**20:,.1f}), "
+        f"{(limit - peak) / 2**20:,.1f} MiB of the usable limit and {free_after / 2**20:,.1f} "
+        f"MiB free left ({card})")
+    say(f"phase 13b: the last diagonal and the (first, last) panel pairs equal the AND + "
+        f"popcount yardstick on all six counters and the numpy oracle on {sampled} sampled "
+        f"pairs; peak host RSS {rss_peak / 2**20:,.0f} MiB against batch_submit.py's "
+        f"{planes_term >> 20:,} MiB planes term, {(rss_peak - storage.planes.nbytes) / 2**20:,.0f} "
+        f"MiB of it beside the planes against its 8,192 MiB process term")
+    return launches, max_err, {"fit_limit_rows": rows, "fit_limit_set_by": size["rows_set_by"]}
+
+
 def main() -> int:
     import torch
 
@@ -1359,8 +1617,9 @@ def main() -> int:
         print(f"chip_smoke: cannot import the port (run from the repository "
               f"root): {e}", file=sys.stderr)
         return 2
-    torch.cuda.set_device(0)
     card = phase_env()
+    phase_task_limit(card)  # before this process holds any device memory
+    torch.cuda.set_device(0)
     phase_build()
     records = {"king_counts": phase_kernel(card), "king_emit": phase_emit(card)}
     popc_launches = king_cuda.popc_launches
@@ -1379,9 +1638,19 @@ def main() -> int:
     phase_side_copy(card)
     launches["scaling_same_card"] = phase_scaling_same_card(card)
     launches.update(phase_cards(card, engine_storage, engine_rs))
-    del engine_storage, engine_rs
     check(king_cuda.popc_launches == popc_launches,
           "the AND + popcount yardstick launched on the main path")
+    del engine_storage, engine_rs, keep_storage, keep_rs
+    t = time.perf_counter()
+    launches["shard_1m"], shard = phase_shard(card, records["king_counts"]["at_1m_sites"]["ms"])
+    check(king_cuda.popc_launches == popc_launches,
+          "the AND + popcount yardstick launched on the main path")
+    launches["fit_limit_1m"], fit_err, fit_size = phase_fit_limit(card)
+    records["king_counts"]["max_abs_err"] = max(
+        records["king_counts"]["max_abs_err"], shard["max_abs_err"], fit_err)
+    records["king_counts"]["shard_1m_step_ms"] = shard["step_ms"]
+    records["king_counts"].update(fit_size)
+    say(f"phase 13: {time.perf_counter() - t:.1f} s ({card})")
     # The emit kernel replaces no TPU kernel: the JAX package left the step
     # after the count kernel to XLA, and accumulate_hits is its compaction.
     replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",

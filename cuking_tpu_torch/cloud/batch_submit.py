@@ -42,11 +42,16 @@ GPU_TYPE = "nvidia-h100-80gb"
 #
 # * Planes.  ``utils/hbm.check_engine_fit`` admits a shard whose planes,
 #   result buffers and per-step transients fit in 92% of the card's free
-#   memory.  An H100 80GB has at most 81,559 MiB, so at most 75,034 MiB;
-#   the default buffers take 496 MiB (10,485,760 result slots x 24 B, plus
-#   256 B x 1024² of transients), leaving at most 74,538 MiB of planes.
-#   The host holds the same planes (``PanelStorage.planes``) while it
-#   ingests, and uploads them without a second host copy.
+#   memory.  An H100 80GB HBM3 has 81,079 MiB (``total_memory`` 85,017,493,504
+#   B), and free memory never exceeds it, so at most 74,592 MiB; the default
+#   buffers take 496 MiB (10,485,760 result slots x 24 B, plus 256 B x 1024²
+#   of transients), leaving at most 74,096 MiB of planes.  The host holds the
+#   same planes (``PanelStorage.planes``) while it ingests, and uploads them
+#   without a second host copy.  On the card (NVIDIA H100 80GB HBM3,
+#   700.00 W) a fresh process (``tools/torch_shard_at_scale.py``) was
+#   admitted 308,224 x 1,000,000, 73,491 MiB of planes, and peaked at
+#   78,378 MiB of host RSS; in ``chip_smoke.py`` phase 13b the RSS did not
+#   grow across the upload.
 # * Ingest.  ``io/parquet_ingest.py`` keeps at most 2 files per decode
 #   worker in flight, one worker per visible core: 52 on the 26 vCPUs of
 #   ``a3-highgpu-1g``.  A file costs its bytes plus ~52 B per entry (20 B
@@ -55,7 +60,7 @@ GPU_TYPE = "nvidia-h100-80gb"
 # * The process: Python, torch and the CUDA runtime, and the result set
 #   with its sort (up to 10,485,760 rows of 24 B, a few copies): 8,192 MiB.
 #
-# 74,538 + 24,576 + 8,192 = 107,306, rounded up to 105 GiB = 107,520 MiB,
+# 74,096 + 24,576 + 8,192 = 106,864, rounded up to 105 GiB = 107,520 MiB,
 # under the 234 GB of ``a3-highgpu-1g``.  The reference asked 85 GiB
 # (87,040 MiB) of ``a2-highgpu-1g`` for a 40 GB A100.
 DEFAULT_MEMORY_MIB = 107_520

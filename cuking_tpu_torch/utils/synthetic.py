@@ -1,9 +1,10 @@
 """Port of ``cuking_tpu/utils/synthetic.py`` (a copy; numpy only).
 
 Synthetic genotype data for tests and benchmarks.  The generators at the
-end (``random_planes``, ``edge_planes``, ``random_counters``) are the
-port's own: they write het/hom words, or KING counters, directly, without
-genotypes in between.
+end (``random_planes``, ``edge_planes``, ``random_counters``,
+``plant_clone_families``, ``rows_past_word_limits``) are the port's own:
+they write het/hom words, or KING counters, directly, without genotypes in
+between.
 
 The reference has no test fixtures at all (SURVEY.md §4); this generator
 produces dense genotype matrices with realistic allele-frequency structure,
@@ -12,6 +13,8 @@ parent-child style mixtures) so kin-threshold filtering paths actually fire.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 
@@ -137,3 +140,36 @@ def random_counters(ni: int, nj: int, rng, ties=()) -> np.ndarray:
     for li, lj in ties:
         counters[:, li, lj] = (7, 30, 40, 3, 500, 700)
     return counters
+
+
+def plant_clone_families(planes: np.ndarray, groups) -> list[tuple[int, int]]:
+    """Copies the first row of each group in ``groups`` (sequences of row
+    indices) into the group's other rows of ``planes`` ([2, rows, W]), in
+    place, and returns every pair (i < j) of rows that are then copies of
+    one another, sorted: the hits a sweep must return, each with kin
+    exactly 0.5.  A group may start at a row that an earlier group copied
+    from or into (``(0, rows - 1)`` after ``range(0, 4)`` makes a family of
+    5); it may not overwrite a row that another family started from."""
+    source: dict[int, int] = {}
+    for group in groups:
+        first, *rest = (int(r) for r in group)
+        for r in rest:
+            planes[:, r] = planes[:, first]
+            source[r] = source.get(first, first)
+    families: dict[int, set] = {}
+    for row, src in source.items():
+        families.setdefault(src, {src}).add(row)
+    return sorted(pair for rows in families.values()
+                  for pair in itertools.combinations(sorted(rows), 2))
+
+
+def rows_past_word_limits(rows: int, words: int) -> tuple[int, int]:
+    """For [2, rows, words] planes in one buffer (het plane first): the
+    first het row whose words all lie at or past flat word 2^31, and the
+    first hom row whose words all lie at or past word 2^32.  These are the
+    first rows that a signed, and an unsigned, 32-bit word index cannot
+    reach.  ``rows`` when no such row exists; the row before each result
+    straddles the limit."""
+    het = -(-(1 << 31) // words)
+    hom = max(0, -(-((1 << 32) - rows * words) // words))
+    return min(het, rows), min(hom, rows)

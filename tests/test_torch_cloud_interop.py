@@ -126,13 +126,13 @@ def test_machine_type_without_gpus_is_rejected(machine_type):
 
 
 def test_task_memory_holds_the_largest_shard_the_card_admits():
-    """The docstring's arithmetic: planes at most 92% of 81,559 MiB less the
-    default sweep buffers, 24 GiB of ingest, 8 GiB for the process, under
-    the 234 GB of a3-highgpu-1g."""
+    """The docstring's arithmetic: planes at most 92% of the card's
+    85,017,493,504 B (81,079 MiB) less the default sweep buffers, 24 GiB of
+    ingest, 8 GiB for the process, under the 234 GB of a3-highgpu-1g."""
     from cuking_tpu_torch.models.king import KingConfig
     from cuking_tpu_torch.utils.hbm import sweep_buffer_bytes
 
-    usable = int(81_559 * (1 << 20) * 0.92)
+    usable = int(85_017_493_504 * 0.92)
     planes_mib = (usable - sweep_buffer_bytes(KingConfig(device="cpu"))) >> 20
     need = planes_mib + 24_576 + 8_192
     assert need <= batch_submit.DEFAULT_MEMORY_MIB < need + 1024

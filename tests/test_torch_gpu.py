@@ -464,3 +464,47 @@ def test_ring_over_cards_stays_inside_the_ring_model(cuda_device):
     ref = KingEngine.from_genotypes(
         g, KingConfig(kernel="cuda", device="cuda", kin_threshold=0.0884)).run()
     _same_rows(ring_output_to_resultset(out), ref)
+
+
+@pytest.fixture(scope="module")
+def store_1m():
+    """36,864 x 1,000,000 planes on the card, 2.30e9 words (9.2 GB): the
+    hom rows from 31,854 on lie past word 2^31.  Random words drawn on the
+    card; the module's last tests use it, so it is freed at the end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernel has no CPU mode")
+    words = PlaneLayout.create(1_000_000).words
+    gen = torch.Generator(device="cuda").manual_seed(36_864)
+    planes = torch.randint(-2**31, 2**31 - 1, (2, 36_864, words), generator=gen,
+                           dtype=torch.int32, device="cuda")
+    assert planes.numel() > 2**31 and 36_864 * words + 31_854 * words >= 2**31
+    yield planes
+    del planes
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i_off,tri", [(35_840, 1), (0, 0)])
+def test_kernels_past_word_2_31_at_1m_sites(store_1m, i_off, tri):
+    """The last diagonal pair and the (first, last) pair of the 1M-site
+    store through the indexed entry: the six counters equal the five-block
+    plain version and the AND + popcount yardstick, and the emit kernel on
+    them equals emit_hits_plain, keep-all and at the counters' median kin."""
+    planes, j_off = store_1m, 35_840
+    got = panel_counts_cuda_indexed(planes, i_off, j_off, tri, 1024)
+    five = panel_counts_five_block(planes[:, i_off:i_off + 1024], planes[:, j_off:j_off + 1024])
+    popc = panel_counts_popc_indexed(planes, i_off, j_off, tri, 1024)
+    keep = torch.ones((1024, 1024), dtype=torch.bool, device=planes.device)
+    if tri:
+        keep = keep.triu(1)
+    for name, g, f, p in zip(got._fields, got, five, popc):
+        assert torch.equal(g[keep], f[keep]), name
+        assert torch.equal(g[keep], p[keep]), name
+    median = float(king_from_counts(got).kin[keep].median())
+    for threshold in (-2.0, median):
+        args = (i_off, j_off, i_off + 1024, j_off + 1024, threshold, True, False)
+        hits, ref = HitBuffer(1 << 20, planes.device), HitBuffer(1 << 20, planes.device)
+        emit_hits(got, hits, *args)
+        emit_hits_plain(got, ref, *args)
+        assert int(hits.count) == int(ref.count) > 0
+        assert _sorted_rows(hits) == _sorted_rows(ref)

@@ -41,8 +41,9 @@ def test_port_imports_no_jax_triton_or_pyarrow():
 _IMPORT_TOOLS = """
 import sys
 sys.path.insert(0, ".")
-from tools import torch_baseline_parity, torch_capacity_plan, torch_sweep_ab
+from tools import torch_baseline_parity, torch_capacity_plan, torch_shard_at_scale, torch_sweep_ab
 plan = torch_capacity_plan.build_plan(150_000, 1_000_000)
+torch_shard_at_scale.deployment_storage(1024, 300, 1, "cpu")
 g = torch_baseline_parity.edge_case_genotypes(24, 300, 1)
 torch_baseline_parity.expected_table(g, torch_baseline_parity.CATCH_ALL)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "cuking_tpu"))
@@ -51,8 +52,9 @@ print(plan["split_factor"], bad)
 
 
 def test_port_tools_import_no_jax():
-    """The parity, capacity-plan and sweep A/B tools load neither jax nor
-    cuking_tpu, not even through a numpy-only module of it."""
+    """The parity, capacity-plan, shard-at-scale and sweep A/B tools load
+    neither jax nor cuking_tpu, not even through a numpy-only module of
+    it."""
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_TOOLS], cwd=REPO, capture_output=True,
         text=True, check=True,

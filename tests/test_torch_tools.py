@@ -111,8 +111,8 @@ def test_capacity_plan_cli(capsys):
 
 def test_step_time_is_linear_in_words():
     assert plan_tool.step_ms(3_128) == pytest.approx(1.11)
-    assert plan_tool.step_ms(31_252) == pytest.approx(10.6)
-    assert plan_tool.step_ms((3_128 + 31_252) // 2) == pytest.approx((1.11 + 10.6) / 2)
+    assert plan_tool.step_ms(31_252) == pytest.approx(10.55)
+    assert plan_tool.step_ms((3_128 + 31_252) // 2) == pytest.approx((1.11 + 10.55) / 2)
 
 
 def test_scaling_bench_validates_the_schedule_on_the_cpu(capsys):

@@ -8,7 +8,9 @@ batch_submit.py``), one task per ``--split_factor`` shard, so the plan is:
 * the smallest ``--split_factor`` whose worst shard passes the CLI's own
   memory check, ``utils/hbm.check_engine_fit``, at the default
   ``KingConfig`` (capacity, ``max_results``, panel 1024, words multiple 4),
-  with the card's bytes times ``_USABLE_FRACTION`` as its limit;
+  with the limit that check computes in a task: the free device memory a
+  fresh process sees (the card's total less its CUDA context) times
+  ``_USABLE_FRACTION``;
 * the number of tasks, k(k+1)/2;
 * the GPU-hours per cohort: per task, the entries it ingests (every task
   reads the whole input) over the ingest rate, plus its panel-pair steps
@@ -16,10 +18,12 @@ batch_submit.py``), one task per ``--split_factor`` shard, so the plan is:
   fixed start-up time.
 
 The rates are flags.  Their defaults are builders' ``chip_smoke.py``
-readings on an NVIDIA H100 80GB HBM3 at 700.00 W, not measurements of a
-shard at scale: the count kernel's 1.11 ms per step at 3,128 words and
-10.6 ms at 31,252 words (interpolated linearly in words), ~8 s of start-up
-and 17-22M entries/s of ingest from smoke-size tasks.
+readings on an NVIDIA H100 80GB HBM3 at 700.00 W: 1.11 ms per step at
+3,128 words (the count kernel alone, phase 2) and 10.55 ms at 31,252 words
+(a whole 69,632 x 1,000,000 sweep, 24.755 s over 2,346 steps, diagonal
+steps and emit launches included; phase 13a), interpolated linearly in
+words; ~8 s of start-up and 17-22M entries/s of ingest from smoke-size
+tasks (phase 10), not a shard at scale.
 
     python3 tools/torch_capacity_plan.py --samples 150000 --sites 1000000
 
@@ -34,10 +38,14 @@ import os
 import sys
 
 # torch.cuda.get_device_properties(0).total_memory of an NVIDIA H100 80GB
-# HBM3 (power limit 700.00 W), read on the card.
+# HBM3 (power limit 700.00 W), read on the card, and the free memory
+# (torch.cuda.mem_get_info) that a fresh process sees there once it has made
+# its CUDA context, which check_engine_fit reads in a task
+# (tools/torch_shard_at_scale.py).
 H100_TOTAL_MEMORY = 85_017_493_504
+H100_FREE_MEMORY = 84_465_090_560
 # ms per 1024 x 1024 panel-pair step of the count kernel, at (words, ms).
-STEP_MS_AT = ((3_128, 1.11), (31_252, 10.6))
+STEP_MS_AT = ((3_128, 1.11), (31_252, 10.55))
 STARTUP_S = 8.0
 INGEST_ENTRIES_PER_S = 20e6
 # Parquet entries (defined genotypes) per sample and site: 5% missing.
@@ -92,6 +100,23 @@ def minimal_split_factor(num_samples: int, words: int, bytes_limit: int, config)
     return hi
 
 
+def largest_diagonal_rows(words: int, bytes_limit: int, config) -> int:
+    """The most rows, a multiple of ``config.panel``, of a split-1 shard
+    that check_engine_fit admits under ``bytes_limit``; 0 when not one
+    panel fits."""
+    panel = config.panel
+    # fits(lo * panel) (or lo == 0); not fits(hi * panel): a panel of planes
+    # is at least 2 * panel * words * 4 bytes.
+    lo, hi = 0, bytes_limit // (8 * panel * words) + 1
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if fits(mid * panel, words, 1, bytes_limit, config):
+            lo = mid
+        else:
+            hi = mid
+    return lo * panel
+
+
 def shard_steps(num_samples: int, split_factor: int, panel: int) -> list[int]:
     """Panel-pair steps of every shard: P(P+1)/2 for a diagonal shard of P
     panels, P_i x P_j off the diagonal."""
@@ -105,7 +130,7 @@ def shard_steps(num_samples: int, split_factor: int, panel: int) -> list[int]:
     return steps
 
 
-def build_plan(num_samples: int, num_sites: int, *, total_bytes: int = H100_TOTAL_MEMORY,
+def build_plan(num_samples: int, num_sites: int, *, free_bytes: int = H100_FREE_MEMORY,
                step_ms_at=STEP_MS_AT, startup_s: float = STARTUP_S,
                ingest_rate: float = INGEST_ENTRIES_PER_S,
                density: float = ENTRY_DENSITY) -> dict:
@@ -115,11 +140,11 @@ def build_plan(num_samples: int, num_sites: int, *, total_bytes: int = H100_TOTA
 
     config = KingConfig()
     words = PlaneLayout.create(num_sites).words
-    limit = int(total_bytes * _USABLE_FRACTION)
+    limit = int(free_bytes * _USABLE_FRACTION)
     k = minimal_split_factor(num_samples, words, limit, config)
     plan = {
         "samples": num_samples, "sites": num_sites, "words": words,
-        "total_bytes": total_bytes, "usable_bytes": limit, "split_factor": k,
+        "free_bytes": free_bytes, "usable_bytes": limit, "split_factor": k,
     }
     if k is None:
         return plan
@@ -143,7 +168,7 @@ def build_plan(num_samples: int, num_sites: int, *, total_bytes: int = H100_TOTA
         rates={"step_ms_at_words": [list(p) for p in step_ms_at], "startup_s": startup_s,
                "ingest_entries_per_s": ingest_rate, "entries_per_sample_site": density,
                "source": "builders' chip_smoke.py readings on an NVIDIA H100 80GB HBM3, "
-                         "700.00 W; not measured at scale"},
+                         "700.00 W; ingest and start-up not measured at scale"},
     )
     return plan
 
@@ -152,14 +177,16 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--samples", type=int, default=150_000)
     ap.add_argument("--sites", type=int, default=1_000_000)
-    ap.add_argument("--bytes", type=int, default=H100_TOTAL_MEMORY, help=(
-        "the card's memory in bytes, before the usable fraction (default: "
-        "total_memory of an NVIDIA H100 80GB HBM3, 700.00 W)"))
+    ap.add_argument("--bytes", type=int, default=H100_FREE_MEMORY, help=(
+        "the device memory a task's process finds free, in bytes, before the "
+        "usable fraction (default: read on an NVIDIA H100 80GB HBM3, 700.00 W, "
+        "whose total is 85,017,493,504 B)"))
     ap.add_argument("--step-ms-100k", type=float, default=STEP_MS_AT[0][1], help=(
         "ms per 1024 x 1024 step at 3,128 words (100,000 sites); default: the count "
         "kernel on an NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 2)"))
     ap.add_argument("--step-ms-1m", type=float, default=STEP_MS_AT[1][1], help=(
-        "the same at 31,252 words (1,000,000 sites)"))
+        "the same at 31,252 words (1,000,000 sites); default: a whole 69,632-sample "
+        "sweep per step on an NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 13a)"))
     ap.add_argument("--startup-s", type=float, default=STARTUP_S, help=(
         "seconds per task before ingest; default: a bare start-up process on an "
         "NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 10)"))
@@ -171,7 +198,7 @@ def main(argv: list[str] | None = None) -> int:
     args = ap.parse_args(argv)
 
     plan = build_plan(
-        args.samples, args.sites, total_bytes=args.bytes,
+        args.samples, args.sites, free_bytes=args.bytes,
         step_ms_at=((STEP_MS_AT[0][0], args.step_ms_100k),
                     (STEP_MS_AT[1][0], args.step_ms_1m)),
         startup_s=args.startup_s, ingest_rate=args.ingest_rate, density=args.density)
@@ -194,7 +221,7 @@ def main(argv: list[str] | None = None) -> int:
         f"sweep {hours['sweep']:.2f}, start-up {hours['startup']:.2f}); the longest "
         f"task {plan['task_hours']['max']:.2f} h\n"
         "  The rates are builders' readings on an NVIDIA H100 80GB HBM3 at 700.00 W "
-        "(chip_smoke.py), not measurements at scale.",
+        "(chip_smoke.py); ingest and start-up are not measurements at scale.",
         file=sys.stderr,
     )
     print(json.dumps(plan))
