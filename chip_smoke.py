@@ -132,6 +132,16 @@ Phases (any failure exits nonzero):
     counters and the numpy oracle on sampled pairs, tile corners included.
     The peak host RSS is printed against ``cloud/batch_submit.py``'s planes
     term.  Phase 13's time is printed.
+14. One whole CLI task from Parquet at 1,000,000 sites
+    (``tools/torch_cli_at_scale.run_cell``): 16,384 samples, 16 site-ordered
+    ZSTD files of ~9.4M cells each (577 sites over every sample, cell O's
+    file size), with planted clone and half-copy families; the CLI runs in
+    a child process on the card.  Its rows must be exactly the planted pairs
+    (clones kin == float32(0.5), ibs0 == ibs1 == 0; half-copies equal to the
+    numpy oracle), the planes of the sampled rows equal the same genotypes
+    packed by ``pack_genotypes``, the planes' hom-ref / het / hom-alt bits
+    the writer's tallies, and the child's launches one of each kernel per
+    step (136).  The stage times and peak RSS are printed.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
@@ -1419,6 +1429,25 @@ def phase_cards(card: str, storage, engine_rs) -> dict:
     return launches
 
 
+# Phase 14: a whole CLI task from Parquet at 1,000,000 sites.
+CLI_SCALE_SAMPLES, CLI_SCALE_FILES = 16_384, 16
+
+
+def phase_cli_at_scale(card: str) -> dict:
+    from tools.torch_cli_at_scale import cohort_for, run_cell
+
+    cohort = cohort_for(CLI_SCALE_SAMPLES, files=CLI_SCALE_FILES)
+    with tempfile.TemporaryDirectory() as tmp:
+        r = run_cell(cohort, tmp, ingest_runs=0, log=lambda line: say(f"phase 14: {line}"))
+    check(r["ok"], f"the CLI task at scale failed its checks: {r['failures']}")
+    t = r["task"]
+    say(f"phase 14: {cohort.samples:,} x {cohort.sites:,} from {cohort.files} files "
+        f"({r['input']['entries']:,} entries): exactly the {r['output']['planted_pairs']:,} "
+        f"planted pairs, {t['rows_checked']} rows' planes equal to pack_genotypes, the "
+        f"tallies equal, launches {t['launches']}; wall {t['wall_s']:.1f} s ({card})")
+    return t["launches"]
+
+
 # Phase 13: the main path at a deployment's shard size, 1,000,000 sites.
 DEPLOY_SITES = 1_000_000
 SHARD_ROWS = 69_632  # 68 panels; its het and hom planes cross words 2^31 and 2^32
@@ -1651,6 +1680,9 @@ def main() -> int:
     records["king_counts"]["shard_1m_step_ms"] = shard["step_ms"]
     records["king_counts"].update(fit_size)
     say(f"phase 13: {time.perf_counter() - t:.1f} s ({card})")
+    t = time.perf_counter()
+    launches["cli_at_scale"] = phase_cli_at_scale(card)
+    say(f"phase 14: {time.perf_counter() - t:.1f} s ({card})")
     # The emit kernel replaces no TPU kernel: the JAX package left the step
     # after the count kernel to XLA, and accumulate_hits is its compaction.
     replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",

@@ -453,6 +453,7 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
         check_engine_fit(
             metadata.num_samples, layout.words, submatrix, config, args.split_factor
         )
+    logger.begin("Allocating bit planes...")
     if args.distributed:
         # Host-sharded storage: this rank holds only its own positions'
         # sample row blocks (no full-cohort bitset per rank).
@@ -461,6 +462,7 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
         )
     else:
         panel_storage = PanelStorage(layout, submatrix, config.panel)
+    logger.end("allocate")
     mib = panel_storage.planes.nbytes >> 20
     logger.print(f"Allocated {mib} MiB of memory for bit planes.")
 

@@ -53,12 +53,20 @@ GPU_TYPE = "nvidia-h100-80gb"
 #   78,378 MiB of host RSS; in ``chip_smoke.py`` phase 13b the RSS did not
 #   grow across the upload.
 # * Ingest.  ``io/parquet_ingest.py`` keeps at most 2 files per decode
-#   worker in flight, one worker per visible core: 52 on the 26 vCPUs of
-#   ``a3-highgpu-1g``.  A file costs its bytes plus ~52 B per entry (20 B
-#   decoded, 20 B after the shard filter, 12 B of packer indices), so
-#   24,576 MiB holds 52 files of up to ~9M entries.
+#   worker in flight, one worker per CPU the task may run on: 52 files on
+#   the 26 vCPUs of ``a3-highgpu-1g``.  A file costs its bytes plus ~52 B
+#   per entry (20 B decoded, 20 B after the shard filter, 12 B of packer
+#   indices), so 24,576 MiB holds 52 files of up to ~9M entries.  On the
+#   card's host (NVIDIA H100 80GB HBM3, 700.00 W; cell O of
+#   ``tools/torch_cli_at_scale.py``: 150,000 x 1,000,000, files of ~9.0M
+#   entries) ingest alone peaked at 44,175 MiB with 4 decoders and 47,485
+#   with 8 (means of three and eight runs): 827 MiB per decoder, 21,514
+#   MiB at 26, a 12% margin under this term.
 # * The process: Python, torch and the CUDA runtime, and the result set
 #   with its sort (up to 10,485,760 rows of 24 B, a few copies): 8,192 MiB.
+#   The whole cell O task peaked 12,197-12,787 MiB beside its planes on 8
+#   decoders, so 5,577-6,167 MiB beside the decoders' share, and a
+#   26-decoder task ~27,092-27,682 MiB, inside these two terms' 32,768.
 #
 # 74,096 + 24,576 + 8,192 = 106,864, rounded up to 105 GiB = 107,520 MiB,
 # under the 234 GB of ``a3-highgpu-1g``.  The reference asked 85 GiB

@@ -1,5 +1,12 @@
 """Port of ``cuking_tpu/io/parquet_ingest.py`` (a copy; pyarrow is
-imported inside the functions).
+imported inside the functions).  Two divergences, both in how many threads
+run: the decode pool is sized by the CPUs this process may run on
+(``native.packer.usable_cpus``, its affinity mask), where the JAX package's
+copy counts every core of the host, so a task confined by ``taskset`` or a
+container's cpuset starts no more decoders than it has cores; and each
+native packer call gets the CPUs that the busy decoders leave (one when
+every decoder has a file), where the JAX package's starts up to 16 threads
+in every call.
 
 Parquet COO ingest → packed bit planes (the MatrixTable transpose).
 
@@ -19,11 +26,11 @@ Column NAMES are not checked, matching the reference.
 from __future__ import annotations
 
 import io
-import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 from cuking_tpu_torch.io.uri import Storage
+from cuking_tpu_torch.native.packer import usable_cpus
 from cuking_tpu_torch.ops import bitset
 from cuking_tpu_torch.utils.status import FailedPreconditionError
 from cuking_tpu_torch.utils.stopwatch import StageLogger
@@ -108,7 +115,8 @@ def ingest_parquet(
             # Lock-free: relaxed atomic AND per word, safe under concurrent
             # writers exactly like the reference's AtomicClearBit
             # (cuking.cu:316-323).
-            native.clear_bits(planes, layout, offsets, row_idx, n_alt, source=path)
+            native.clear_bits(planes, layout, offsets, row_idx, n_alt, source=path,
+                              num_threads=packer_threads)
         else:
             # The sort/segment mask computation runs on thread-local arrays
             # and needs no lock; only the O(words-touched) in-place scatter
@@ -132,7 +140,12 @@ def ingest_parquet(
     # cores there makes ingest severalfold slower.  So: ``num_reader_threads``
     # whole-object readers feeding a cores-sized decode pool, with in-flight
     # buffers bounded so memory stays at ~2 blobs per decoder.
-    cpu_workers = max(1, min(num_reader_threads, os.cpu_count() or 1))
+    cpu_workers = max(1, min(num_reader_threads, usable_cpus()))
+    # A packer call takes the CPUs the busy decoders leave: one when every
+    # decoder has a file.  Threads inside every call on top of one decoder
+    # per CPU were never faster and up to ~10% slower in three A/B runs on
+    # the 8 CPUs of an H100 machine (tools/torch_cli_at_scale.py).
+    packer_threads = max(1, usable_cpus() // min(cpu_workers, max(1, len(input_files))))
     in_flight = threading.BoundedSemaphore(cpu_workers * 2)
     errors: list[BaseException] = []
 

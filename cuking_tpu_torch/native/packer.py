@@ -1,7 +1,10 @@
 """Port of ``cuking_tpu/native/packer.py``: the same ``native/packer.cpp``,
 built into its own library file (``libcuking_packer_torch.so``), written to a
 temporary name and renamed into place so that processes building at once
-never load a half-written library.
+never load a half-written library.  Its default thread count follows the
+CPUs this process may run on (:func:`usable_cpus`, the affinity mask that
+``taskset`` or a container's cpuset sets), where the JAX package's copy
+counts every core of the host.
 
 ctypes binding + on-demand build for the native C++ packer.
 
@@ -79,6 +82,16 @@ def _load() -> ctypes.CDLL | None:
         return _lib
 
 
+def usable_cpus() -> int:
+    """The CPUs this process may run on: its affinity mask, which ``taskset``
+    and a container's cpuset narrow, not ``os.cpu_count()``, which counts
+    every core of the host."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:  # no affinity masks on this platform
+        return os.cpu_count() or 1
+
+
 def available() -> bool:
     return _load() is not None
 
@@ -115,7 +128,7 @@ def clear_bits(
 
     plane_words = planes.shape[1] * planes.shape[2]
     if num_threads <= 0:
-        num_threads = min(os.cpu_count() or 1, 16)
+        num_threads = min(usable_cpus(), 16)
     bad = lib.cuking_clear_bits(
         planes[0].ctypes.data,
         planes[1].ctypes.data,

@@ -104,7 +104,7 @@ def test_capacity_plan_cli(capsys):
     assert plan_tool.main(["--samples", "150000", "--sites", "1000000"]) == 0
     out = capsys.readouterr()
     assert '"split_factor": 1' in out.out and '"tasks": 1' in out.out
-    assert "not measurements at scale" in out.err
+    assert "not a 26-vCPU task's" in out.err
     assert plan_tool.main(["--bytes", str(1 << 30)]) == 1
     assert '"split_factor": null' in capsys.readouterr().out
 

@@ -14,16 +14,18 @@ batch_submit.py``), one task per ``--split_factor`` shard, so the plan is:
 * the number of tasks, k(k+1)/2;
 * the GPU-hours per cohort: per task, the entries it ingests (every task
   reads the whole input) over the ingest rate, plus its panel-pair steps
-  times the time per 1024 x 1024 step at the cohort's word count, plus a
-  fixed start-up time.
+  times the time per 1024 x 1024 step at the cohort's word count, plus the
+  task's time outside both (start-up, plane allocation and upload, sort
+  and write).
 
-The rates are flags.  Their defaults are builders' ``chip_smoke.py``
-readings on an NVIDIA H100 80GB HBM3 at 700.00 W: 1.11 ms per step at
-3,128 words (the count kernel alone, phase 2) and 10.55 ms at 31,252 words
-(a whole 69,632 x 1,000,000 sweep, 24.755 s over 2,346 steps, diagonal
-steps and emit launches included; phase 13a), interpolated linearly in
-words; ~8 s of start-up and 17-22M entries/s of ingest from smoke-size
-tasks (phase 10), not a shard at scale.
+The rates are flags.  Their defaults are readings on an NVIDIA
+H100 80GB HBM3 at 700.00 W: 1.11 ms per step at 3,128 words (the count
+kernel alone, ``chip_smoke.py`` phase 2) and 10.55 ms at 31,252 words (a
+whole 69,632 x 1,000,000 sweep, 24.755 s over 2,346 steps, diagonal steps
+and emit launches included; phase 13a), interpolated linearly in words;
+ingest and the time outside ingest and the sweep from one whole CLI task
+of 150,000 x 1,000,000 from Parquet (cell O, ``tools/torch_cli_at_scale.py``)
+on the H100 host's 8 CPUs.
 
     python3 tools/torch_capacity_plan.py --samples 150000 --sites 1000000
 
@@ -46,8 +48,16 @@ H100_TOTAL_MEMORY = 85_017_493_504
 H100_FREE_MEMORY = 84_465_090_560
 # ms per 1024 x 1024 panel-pair step of the count kernel, at (words, ms).
 STEP_MS_AT = ((3_128, 1.11), (31_252, 10.55))
-STARTUP_S = 8.0
-INGEST_ENTRIES_PER_S = 20e6
+# Cell O's task outside ingest and the sweep: 35.1 / 37.5 s in two runs
+# (start-up ~11.7 s, allocating 37.63 GB of planes 18.8-19.1 s, uploading
+# them 5.6-6.0 s, sort and write < 1 s); the allocation and upload grow
+# with the shard.
+STARTUP_S = 36.0
+# Entries/s of cell O's ingest alone on all 8 CPUs of the H100 host (the
+# 26-CPU pin of a3-highgpu-1g cannot be taken there): the median of three
+# whole-input runs, 21.35-24.60M; the task's own ingest stage in the same
+# run read 33.1M/s, and 4 CPUs gave 15.9M/s over 48 files.
+INGEST_ENTRIES_PER_S = 21.8e6
 # Parquet entries (defined genotypes) per sample and site: 5% missing.
 ENTRY_DENSITY = 0.95
 
@@ -167,8 +177,9 @@ def build_plan(num_samples: int, num_sites: int, *, free_bytes: int = H100_FREE_
         },
         rates={"step_ms_at_words": [list(p) for p in step_ms_at], "startup_s": startup_s,
                "ingest_entries_per_s": ingest_rate, "entries_per_sample_site": density,
-               "source": "builders' chip_smoke.py readings on an NVIDIA H100 80GB HBM3, "
-                         "700.00 W; ingest and start-up not measured at scale"},
+               "source": "readings on an NVIDIA H100 80GB HBM3, 700.00 W: "
+                         "steps by chip_smoke.py, ingest and the rest of a task by "
+                         "tools/torch_cli_at_scale.py on the host's 8 CPUs"},
     )
     return plan
 
@@ -188,11 +199,13 @@ def main(argv: list[str] | None = None) -> int:
         "the same at 31,252 words (1,000,000 sites); default: a whole 69,632-sample "
         "sweep per step on an NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 13a)"))
     ap.add_argument("--startup-s", type=float, default=STARTUP_S, help=(
-        "seconds per task before ingest; default: a bare start-up process on an "
-        "NVIDIA H100 80GB HBM3, 700.00 W (chip_smoke.py phase 10)"))
+        "seconds per task outside ingest and the sweep; default: a whole "
+        "150,000 x 1,000,000 task on an NVIDIA H100 80GB HBM3, 700.00 W "
+        "(tools/torch_cli_at_scale.py)"))
     ap.add_argument("--ingest-rate", type=float, default=INGEST_ENTRIES_PER_S, help=(
-        "Parquet entries read per second; default: smoke-size tasks read 17-22M/s "
-        "on the H100 machine (chip_smoke.py phase 10)"))
+        "Parquet entries read per second; default: the median of three whole-input "
+        "ingests of a 150,000 x 1,000,000 task on the H100 host's 8 CPUs "
+        "(tools/torch_cli_at_scale.py)"))
     ap.add_argument("--density", type=float, default=ENTRY_DENSITY, help=(
         "Parquet entries per sample and site (1 - the missing rate)"))
     args = ap.parse_args(argv)
@@ -218,10 +231,11 @@ def main(argv: list[str] | None = None) -> int:
         f"{plan['usable_bytes'] / gib:.2f} GiB usable\n"
         f"  {plan['steps']:,} panel-pair steps at {plan['step_ms']:.3f} ms\n"
         f"  GPU-hours per cohort: {hours['total']:.2f} (ingest {hours['ingest']:.2f}, "
-        f"sweep {hours['sweep']:.2f}, start-up {hours['startup']:.2f}); the longest "
+        f"sweep {hours['sweep']:.2f}, the rest {hours['startup']:.2f}); the longest "
         f"task {plan['task_hours']['max']:.2f} h\n"
-        "  The rates are builders' readings on an NVIDIA H100 80GB HBM3 at 700.00 W "
-        "(chip_smoke.py); ingest and start-up are not measurements at scale.",
+        "  The rates are readings on an NVIDIA H100 80GB HBM3 at 700.00 W; "
+        "ingest and the rest of a task are one whole 150,000 x 1,000,000 task's on "
+        "the host's 8 CPUs (tools/torch_cli_at_scale.py), not a 26-vCPU task's.",
         file=sys.stderr,
     )
     print(json.dumps(plan))
