@@ -247,7 +247,7 @@ def _start_mesh(args, devices: list[str], logger) -> tuple[RingMesh, bool]:
     created = False
     try:
         created = _init_distributed(devices)
-    except (ValueError, RuntimeError, OSError):
+    except (ValueError, RuntimeError, OSError) as e:
         # A multi-process run whose rendezvous fails must be fatal:
         # continuing would give every rank rank 0, a local-only ring, a
         # full-cohort bitset per rank and races on part-00000.  Only
@@ -259,8 +259,8 @@ def _start_mesh(args, devices: list[str], logger) -> tuple[RingMesh, bool]:
                 "torch.distributed failed to initialize in what looks like "
                 f"a multi-process run ({reason}); refusing to degrade to "
                 "a single-process mesh. Re-run the task, or pass "
-                "--allow_single_process to override."
-            )
+                f"--allow_single_process to override. Cause: {e}"
+            ) from e
         logger.print(
             "No distributed coordinator available; running single-process."
         )

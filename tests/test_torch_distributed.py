@@ -103,7 +103,9 @@ def test_host_sharded_ingest_equals_replicated(input_uri, split_factor, shard_in
     ingest_parquet(Storage(), files, replicated, num_reader_threads=2)
     ref = JaxHostSharded(JaxLayout.create(meta.num_sites, words_multiple=DEFAULT_WORDS_MULTIPLE),
                          N, jax_mesh(8), submatrix=JaxSubmatrix.create(N, split_factor, shard_index))
-    jax_ingest(JaxStorage(), files, ref, num_reader_threads=2)
+    # The JAX package's numpy path: its native packer is built in place and
+    # may be unloadable in a test worker (see tests/test_torch_ingest.py).
+    jax_ingest(JaxStorage(), files, ref, num_reader_threads=2, use_native=False)
     assert port.planes.tobytes() == ref.planes.tobytes()
 
     ranges = port.to_device_blocks()
@@ -203,9 +205,10 @@ def test_capacity_per_device_overflow_retries(tmp_path, input_uri):
 def test_distributed_refuses_a_degraded_multi_process_run(tmp_path, input_uri,
                                                           monkeypatch, capsys):
     """MASTER_ADDR set but no RANK: the env:// rendezvous fails at once.
-    In what looks like a multi-process run that is fatal, unless
-    --allow_single_process; with no such variables the run goes on in one
-    process."""
+    In what looks like a multi-process run that is fatal unless
+    --allow_single_process, and the error names the rendezvous's own
+    complaint (the missing RANK); with no such variables the run goes on in
+    one process."""
     for var in ("RANK", "WORLD_SIZE", "MASTER_PORT", "TORCHELASTIC_RUN_ID"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
@@ -214,6 +217,7 @@ def test_distributed_refuses_a_degraded_multi_process_run(tmp_path, input_uri,
     assert cli.main(argv) == 1
     err = capsys.readouterr().err
     assert "FAILED_PRECONDITION" in err and "MASTER_ADDR is set" in err
+    assert "Cause: " in err and "RANK" in err.split("Cause: ")[1]
     assert not os.path.exists(tmp_path / "out")
     assert cli.main([*argv, "--allow_single_process"]) == 0
     monkeypatch.setenv("WORLD_SIZE", "2")

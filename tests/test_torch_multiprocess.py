@@ -28,6 +28,7 @@ from tests.test_torch_cli import read_output_rows
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_SAMPLES, NUM_SITES = 54, 400
 CASE_TIMEOUT_S = 60
+LAUNCH_ATTEMPTS = 3
 
 
 def _free_port() -> int:
@@ -36,9 +37,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(world: int, argv: list[str]) -> None:
-    """Runs ``world`` ranks of the CLI and waits for all of them."""
-    port = _free_port()
+def _run_ranks(world: int, argv: list[str], port: int) -> list[tuple[int, str]] | None:
+    """Each rank's exit code and output, or None when rank 0 could not
+    listen on ``port`` (the others are then stopped, not waited for)."""
     procs = []
     for rank in range(world):
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
@@ -49,12 +50,32 @@ def launch(world: int, argv: list[str]) -> None:
             cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     try:
-        outputs = [p.communicate(timeout=CASE_TIMEOUT_S)[0] for p in procs]
+        outputs = [procs[0].communicate(timeout=CASE_TIMEOUT_S)[0]]
+        if procs[0].returncode != 0 and "EADDRINUSE" in outputs[0]:
+            return None
+        outputs += [p.communicate(timeout=CASE_TIMEOUT_S)[0] for p in procs[1:]]
     finally:
         for p in procs:
             p.kill()
-    for rank, (p, out) in enumerate(zip(procs, outputs)):
-        assert p.returncode == 0, f"rank {rank} exited {p.returncode}:\n{out}"
+            p.wait()
+    return [(p.returncode, out) for p, out in zip(procs, outputs)]
+
+
+def launch(world: int, argv: list[str], draw_port=_free_port) -> None:
+    """Runs ``world`` ranks of the CLI and waits for all of them.
+
+    ``_free_port`` closes its socket before rank 0 binds the port, so a test
+    on another xdist worker can draw the same one meanwhile; rank 0 then
+    fails with EADDRINUSE, and the launch runs again on a new port, at most
+    LAUNCH_ATTEMPTS times in all."""
+    for _ in range(LAUNCH_ATTEMPTS):
+        results = _run_ranks(world, argv, draw_port())
+        if results is not None:
+            break
+    else:
+        pytest.fail(f"rank 0 found its port in use {LAUNCH_ATTEMPTS} times")
+    for rank, (code, out) in enumerate(results):
+        assert code == 0, f"rank {rank} exited {code}:\n{out}"
 
 
 @pytest.mark.parametrize("world,devices,split_factor,skew", [
@@ -85,3 +106,29 @@ def test_distributed_cli_across_processes_matches_jax(tmp_path, world, devices,
     port, ref = read_output_rows(str(tmp_path / "port")), read_output_rows(str(tmp_path / "jax"))
     assert len(ref) >= (28 + 8 if skew else 4)
     assert port == ref
+
+
+def test_launch_retries_when_rank_0_finds_its_port_taken(tmp_path):
+    """The port drawn first already has a listener, as another worker's
+    store would: rank 0 fails with EADDRINUSE, which the CLI's error names,
+    and the launch goes on to a second port and a full run."""
+    g = random_genotypes(NUM_SAMPLES, NUM_SITES, missing_rate=0.1, seed=62,
+                         num_related_pairs=2)
+    inp = str(tmp_path / "in.parquet")
+    write_synthetic_input(Storage(), inp, g)
+    drawn = []
+    with socket.socket() as taken:
+        taken.bind(("127.0.0.1", 0))
+        taken.listen()
+
+        def draw_port() -> int:
+            drawn.append(taken.getsockname()[1] if not drawn else _free_port())
+            return drawn[-1]
+
+        launch(2, ["--input_uri", inp, "--kin_threshold", "0.05", "--quiet",
+                   "--device", "cpu", "--output_uri", str(tmp_path / "port")],
+               draw_port)
+    assert len(drawn) == 2 and drawn[0] != drawn[1]
+    assert sorted(os.listdir(tmp_path / "port")) == [
+        f"part-{k:05d}.snappy.parquet" for k in range(2)]
+    assert len(read_output_rows(str(tmp_path / "port"))) >= 2
