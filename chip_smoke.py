@@ -142,11 +142,20 @@ Phases (any failure exits nonzero):
     packed by ``pack_genotypes``, the planes' hom-ref / het / hom-alt bits
     the writer's tallies, and the child's launches one of each kernel per
     step (136).  The stage times and peak RSS are printed.
+15. The port's benchmark, ``python3 bench_torch.py`` in a subprocess at its
+    default budget: exit 0, exactly one JSON line on stdout, ``backend``
+    the card's name, ``value`` and ``vs_baseline`` above 0, no section
+    skipped or failed, all 14,336 planted pairs among the hitful sweep's
+    hits (the bench checks each at kin == float32(0.5), and any other hit
+    against the plain version; their number is printed), and the ring's
+    hits equal to the engine's.  The line and the phase's wall time are
+    printed; the launches the bench reports are its path's.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
 before a path runs and read just after (phase 10's tasks run in processes
-of their own, so their launches are the kernel events of their traces); the
+of their own, so their launches are the kernel events of their traces, and
+phase 15's are the counts the bench reports from its own process); the
 AND + popcount yardstick may launch on no path.  Phase 3
 also profiles one more sweep for the device's busy share.  The
 second-to-last line is the kernels' JSON record; the last line is
@@ -1448,6 +1457,47 @@ def phase_cli_at_scale(card: str) -> dict:
     return t["launches"]
 
 
+# Phase 15: the bench's hitful sweep plants 512 families of 8 clones.
+BENCH_PLANTED_PAIRS = 512 * 8 * 7 // 2
+BENCH_TIMEOUT_S = 600
+
+
+def phase_bench(card: str) -> dict:
+    import torch
+
+    torch.cuda.empty_cache()  # the bench's process needs the card's memory
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    lines = proc.stdout.splitlines()
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"bench_torch.py exited {proc.returncode} with {len(lines)} lines on stdout:\n"
+          f"{proc.stdout}\n{proc.stderr[-6000:]}")
+    line = json.loads(lines[0])
+    diag = line["diagnostics"]
+    say(lines[0])
+    check(line["backend"] == torch.cuda.get_device_name(0),
+          f"the bench ran on {line['backend']!r}")
+    check(line["value"] > 0 and line["vs_baseline"] > 0,
+          f"the bench's value {line['value']}, vs_baseline {line['vs_baseline']}")
+    check(diag["skipped"] == [], f"the bench skipped {diag['skipped']}")
+    check(diag["hits_planted"] == BENCH_PLANTED_PAIRS,
+          f"the bench planted {diag['hits_planted']} pairs")
+    check(diag["hits_emitted"] == BENCH_PLANTED_PAIRS + diag["hits_outside_families"],
+          f"the bench's hitful sweep: {diag['hits_emitted']} hits")
+    check(diag["ring_hits"] == diag["hits_emitted"],
+          f"the ring's {diag['ring_hits']} hits, the engine's {diag['hits_emitted']}")
+    launches = diag["launches_total"]
+    for name in KERNELS:
+        check(launches[name] > 0, f"the bench launched no {name} kernel")
+    say(f"phase 15: bench_torch.py exit 0, {line['value']:,} pairs/s, vs_baseline "
+        f"{line['vs_baseline']}, all {BENCH_PLANTED_PAIRS:,} planted pairs and "
+        f"{diag['hits_outside_families']} others (each equal to the plain version), the "
+        f"ring's hits the engine's, launches {launches}; wall {wall:.1f} s ({card})")
+    return launches
+
+
 # Phase 13: the main path at a deployment's shard size, 1,000,000 sites.
 DEPLOY_SITES = 1_000_000
 SHARD_ROWS = 69_632  # 68 panels; its het and hom planes cross words 2^31 and 2^32
@@ -1683,6 +1733,7 @@ def main() -> int:
     t = time.perf_counter()
     launches["cli_at_scale"] = phase_cli_at_scale(card)
     say(f"phase 14: {time.perf_counter() - t:.1f} s ({card})")
+    launches["bench"] = phase_bench(card)
     # The emit kernel replaces no TPU kernel: the JAX package left the step
     # after the count kernel to XLA, and accumulate_hits is its compaction.
     replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",
