@@ -531,9 +531,9 @@ def sec_kernel_only(b: Bench) -> None:
     """The count kernel alone per panel pair, off the diagonal, j cycling
     over 8 panels (bench.py:368-406), beside its bound.  On the CPU the
     plain int8 ``king_mm`` path by the host clock."""
-    from chip_smoke import count_bound
     from cuking_tpu_torch.ops.king_cuda import panel_counts_cuda_indexed
     from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
+    from cuking_tpu_torch.utils.bounds import count_bound
 
     s, diag = b.sizes, b.run.diag
     planes, p = b.engine.planes_dev, s.panel

@@ -80,7 +80,9 @@ Phases (any failure exits nonzero):
     ``wait_for_completion`` on a stub that reports ``SUCCEEDED`` (it writes
     ``_SUCCESS``).  The merged partitions must equal a split-1 CLI run, and
     each task's trace must show ``king_counts_wgmma_kernel`` launches; each
-    task's wall time, ingest rate and device busy share are printed.  The
+    task's wall time, ingest rate and device busy share (busy time, the
+    union of the device's intervals, over the traced window, read by
+    ``cuking_tpu_torch.utils.trace.analyze``) are printed.  The
     same job rendered without ``--profile_dir`` runs each task once more,
     just before its traced run, and must merge to the same rows: the
     difference in wall time is what tracing costs.  A bare process that
@@ -150,14 +152,23 @@ Phases (any failure exits nonzero):
     against the plain version; their number is printed), and the ring's
     hits equal to the engine's.  The line and the phase's wall time are
     printed; the launches the bench reports are its path's.
+16. The port's twin of ``tools/trace_report.py``,
+    ``python3 tools/torch_trace_report.py`` in a subprocess: the engine's
+    hit-free and hitful sweeps at 16,384 x 100,000 and the ring on one
+    position, each traced; exit 0, the hitful sweep exactly its 14,336
+    planted pairs and the ring's rows the same; in each run the count
+    kernel is the largest category of device time, each kernel's events in
+    the trace equal its launch counter over the run, and the device's busy
+    time fits in its span.  The three tables are printed with the card.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
 before a path runs and read just after (phase 10's tasks run in processes
 of their own, so their launches are the kernel events of their traces, and
-phase 15's are the counts the bench reports from its own process); the
-AND + popcount yardstick may launch on no path.  Phase 3
-also profiles one more sweep for the device's busy share.  The
+phases 15's and 16's are the counts the bench and the trace tool report
+from their own processes); the AND + popcount yardstick may launch on no
+path.  Phase 3 also profiles one more sweep for the device's busy share.
+Every trace is read by ``cuking_tpu_torch.utils.trace``.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
 """
@@ -174,6 +185,14 @@ import tempfile
 import time
 
 import numpy as np
+
+from cuking_tpu_torch.utils.bounds import (  # noqa: F401  (re-exported)
+    PEAK_BYTES,
+    PEAK_FP32_OPS,
+    PEAK_INT8_OPS,
+    count_bound,
+    emit_bound,
+)
 
 SITES = 100_000
 SEED = 20261016
@@ -339,21 +358,6 @@ def phase_build() -> None:
             say(f"  ptxas, {kernel} kernel: {line.split(':', 1)[-1].strip()}")
 
 
-# Card peaks for the bound (NVIDIA's H100 SXM data sheet, dense, 700 W).
-PEAK_INT8_OPS = 1.979e15
-PEAK_BYTES = 3.35e12
-
-
-def count_bound(ni: int, nj: int, words: int) -> tuple[float, str]:
-    """The least time (ms) one count launch could take, and what bounds it:
-    five int8 products of 2 operations per pair and padded site, against
-    the planes read once and the six int32 counters written once."""
-    ops = 10 * ni * nj * 32 * words
-    nbytes = 2 * (ni + nj) * words * 4 + 6 * ni * nj * 4
-    t_ops, t_bytes = ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
 def check_oracle_pairs(counts, planes_i, i_off: int, planes_j, j_off: int, layout,
                        pairs, name: str) -> None:
     """Holds the counters ``counts`` (six [NI, NJ]) of rows ``i_off + x`` of
@@ -510,21 +514,6 @@ def phase_kernel(card: str) -> dict:
         f"{t1m['library_ms']:.3f} ms, five products {t1m['library_five_ms']:.3f} ms, plain version {t1m['plain_ms']:.3f} ms, bound "
         f"{t1m['bound_ms']:.3f} ms ({card})")
     return {"max_abs_err": max_err, **t100k, "at_1m_sites": t1m}
-
-
-PEAK_FP32_OPS = 67e12  # non-tensor float32 (NVIDIA's H100 SXM data sheet)
-
-
-def emit_bound(pairs: int, hits: int) -> tuple[float, str]:
-    """The least time (ms) one emit launch could take over ``pairs``
-    candidate pairs, and what bounds it: the bytes the function needs (the
-    four kin counters of every candidate, 16 B; for each hit the other two
-    counters, 8 B, and its row written, 24 B), against ~10 operations per
-    pair (the kin expression and the mask) at the card's non-tensor float32
-    rate."""
-    t_bytes = (16 * pairs + 32 * hits) / PEAK_BYTES
-    t_ops = 10 * pairs / PEAK_FP32_OPS
-    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
 def _sorted_rows(rows: np.ndarray) -> np.ndarray:
@@ -749,33 +738,30 @@ def phase_early_stop(card: str, storage) -> dict:
 
 
 def profile_sweep(engine, card: str) -> None:
-    """One more sweep under torch.profiler: the device's busy share (kernel
-    time over the sweep's wall time) and the kernels that take the most."""
+    """One more sweep under torch.profiler: the device's busy share (its
+    busy time, the union of its intervals, over the sweep's wall time) and
+    the categories of device time that take the most."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from cuking_tpu_torch.utils import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace.traced() as stats:
         t = time.perf_counter()
         engine.run()
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t)
-    per_kernel: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name if len(e.name) < 60 else e.name[:57] + "..."
-            n, us = per_kernel.get(name, (0, 0.0))
-            per_kernel[name] = (n + 1, us + e.time_range.elapsed_us())
-    busy_us = sum(us for _, us in per_kernel.values())
-    if not busy_us:
+        wall_ms = 1e3 * (time.perf_counter() - t)
+    busy_ms = stats["busy_union_ms"]
+    if not busy_ms:
         say("phase 3: profiled sweep: the profiler saw no device time (busy share not "
             "measured)")
         return
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1][1])[:4]
-    say(f"phase 3: profiled sweep {wall_us / 1e6:.3f} s, device busy "
-        f"{100 * busy_us / wall_us:.1f}% ({busy_us / 1e6:.3f} s of kernels); " + "; ".join(
-            f"{name}: {n} x {us / n / 1e3:.3f} ms = {100 * us / busy_us:.1f}%"
-            for name, (n, us) in top) + f" ({card})")
+    top = list(stats["by_category_ms"].items())[:4]
+    say(f"phase 3: profiled sweep {wall_ms / 1e3:.3f} s, device busy "
+        f"{100 * busy_ms / wall_ms:.1f}% ({busy_ms / 1e3:.3f} s); " + "; ".join(
+            f"{cat}: {stats['events_by_category'][cat]} x "
+            f"{ms / stats['events_by_category'][cat]:.3f} ms = "
+            f"{100 * ms / stats['ops_busy_ms']:.1f}%" for cat, ms in top) + f" ({card})")
 
 
 def phase_keep_all(card: str):
@@ -1132,26 +1118,6 @@ def _stage_seconds(log: str, message: str) -> float:
     return float(m.group(1))
 
 
-# The kernels' names in a trace, by the name of their launch counters.
-TRACE_NAMES = {"king_counts": "king_counts_wgmma_kernel", "king_emit": "king_emit_kernel"}
-
-
-def trace_summary(path: str) -> tuple[dict, float, float]:
-    """(launches of each kernel, device busy ms, traced span ms) of a
-    Chrome trace written by ``--profile_dir``; busy counts kernels, copies
-    and memsets on the device."""
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    check(bool(events), f"{path} holds no events")
-    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    launches = {k: sum(1 for e in device if e["cat"] == "kernel" and name in e["name"])
-                for k, name in TRACE_NAMES.items()}
-    busy_us = sum(float(e["dur"]) for e in device)
-    start = min(float(e["ts"]) for e in events)
-    end = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
-    return launches, busy_us / 1e3, (end - start) / 1e3
-
-
 def phase_fan_out(tmp: str, card: str) -> dict:
     import contextlib
     import io
@@ -1159,6 +1125,7 @@ def phase_fan_out(tmp: str, card: str) -> dict:
     from cuking_tpu_torch.cloud import batch_submit
     from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
     from cuking_tpu_torch.io.uri import Storage
+    from cuking_tpu_torch.utils import trace
     from cuking_tpu_torch.utils.synthetic import random_genotypes
 
     n = 2048
@@ -1233,15 +1200,17 @@ def phase_fan_out(tmp: str, card: str) -> dict:
         say(f"phase 10: task {k} without --profile_dir: exit 0, wall {plain_s:.3f} s, "
             f"{stages(log)} ({card})")
         wall_s, log = run_task(command, k)
-        task_launches, busy_ms, span_ms = trace_summary(
-            f"{traces}/trace-part-{k:05d}.json")
+        stats = trace.analyze(f"{traces}/trace-part-{k:05d}.json")
+        task_launches, busy_ms, span_ms = (stats["launches"], stats["busy_union_ms"],
+                                           stats["trace_span_ms"])
         for name, n in task_launches.items():
-            check(n > 0, f"task {k}: no {TRACE_NAMES[name]} in its trace")
+            check(n > 0, f"task {k}: no {trace.LAUNCH_NAMES[name]} in its trace")
         launches = add_launches(launches, task_launches)
         say(f"phase 10: task {k} with --profile_dir: exit 0, wall {wall_s:.3f} s "
             f"({wall_s - plain_s:+.3f} s against the untraced run), {stages(log)} with "
             f"kernel launches {task_launches}; traced sweep {span_ms:.1f} ms, device "
-            f"busy {busy_ms:.3f} ms = {100 * busy_ms / span_ms:.2f}% ({card})")
+            f"busy (union) {busy_ms:.3f} ms = {100 * busy_ms / span_ms:.2f}% (summed "
+            f"{stats['ops_busy_ms']:.3f} ms) ({card})")
 
     state = batch_submit.wait_for_completion(
         "cuking-smoke", location="us-central1", output_uri=out,
@@ -1372,7 +1341,6 @@ def phase_cards(card: str, storage, engine_rs) -> dict:
     """Phase 12c: the ring with one position per card, when there are
     several cards; on one card it says that it did not run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cuking_tpu_torch.parallel.ring import (
         DEFAULT_MAX_RESULTS,
@@ -1381,8 +1349,8 @@ def phase_cards(card: str, storage, engine_rs) -> dict:
         all_pairs_presharded,
         ring_output_to_resultset,
     )
+    from cuking_tpu_torch.utils import trace
     from cuking_tpu_torch.utils.hbm import ring_shard_bytes
-    from tools.torch_scaling_bench import covered_share, profiled_intervals
 
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -1424,9 +1392,9 @@ def phase_cards(card: str, storage, engine_rs) -> dict:
     peaks = [torch.cuda.max_memory_allocated(k) - base[k] for k in range(cards)]
     for k, peak in enumerate(peaks):
         check(peak <= model, f"cuda:{k} peaked at {peak} B, over the model's {model} B")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace.traced() as stats:
         sweep()
-    overlap = covered_share(profiled_intervals(prof))
+    overlap = stats["transfer_overlap"]
     block_mb = 2 * nd * storage.layout.words * 4 / 2**20
     say(f"phase 12c: cell A ({n} x {SITES}) through a ring of one position per card "
         f"({cards} cards): the engine's {len(engine_rs)} pairs; sweep {sweep_s:.4f} s, "
@@ -1495,6 +1463,59 @@ def phase_bench(card: str) -> dict:
         f"{line['vs_baseline']}, all {BENCH_PLANTED_PAIRS:,} planted pairs and "
         f"{diag['hits_outside_families']} others (each equal to the plain version), the "
         f"ring's hits the engine's, launches {launches}; wall {wall:.1f} s ({card})")
+    return launches
+
+
+# Phase 16: tools/torch_trace_report.py, its three traced runs in this order.
+TRACE_RUNS = ("engine_hitfree", "engine_hitful", "ring_1dev")
+TRACE_TIMEOUT_S = 600
+
+
+def phase_trace_report(card: str) -> dict:
+    """The port's twin of tools/trace_report.py in a subprocess: its hitful
+    sweep's rows are the planted pairs and the ring's equal them (the tool
+    checks both and exits 1 otherwise); in each traced run the count kernel
+    is the largest category, each kernel's events in the trace equal its
+    launch counter over the run, and the device's busy time (the union of
+    its intervals) fits in its span."""
+    import torch
+
+    from cuking_tpu_torch.utils import trace
+
+    torch.cuda.empty_cache()  # the tool's process needs the card's memory
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run([sys.executable, "tools/torch_trace_report.py", "--outdir", tmp],
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=TRACE_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"tools/torch_trace_report.py exited {proc.returncode}:\n"
+                                f"{proc.stdout[-6000:]}\n{proc.stderr[-6000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    runs = line["runs"]
+    check(list(runs) == list(TRACE_RUNS) and line["checks_failed"] == [],
+          f"the tool ran {list(runs)}, failed {line['checks_failed']}")
+    check(line["planted_pairs"] == BENCH_PLANTED_PAIRS
+          and runs["engine_hitful"]["hits"] == runs["ring_1dev"]["hits"] == BENCH_PLANTED_PAIRS,
+          f"planted {line['planted_pairs']}, the hitful sweep's hits "
+          f"{runs['engine_hitful']['hits']}, the ring's {runs['ring_1dev']['hits']}")
+    for name, run in runs.items():
+        stats = run["analysis"]
+        top = next(iter(stats["by_category_ms"]), None)
+        check(top == trace.COUNT_KERNEL, f"{name}: the largest category is {top}")
+        check(stats["launches"] == run["launches_counted"] and min(stats["launches"].values()) > 0,
+              f"{name}: {stats['launches']} kernels in the trace, the counters "
+              f"{run['launches_counted']}")
+        check(stats["busy_union_ms"] <= stats["span_ms"],
+              f"{name}: busy {stats['busy_union_ms']} ms over a {stats['span_ms']} ms span")
+        say(trace.report(f"phase 16: {name}", stats, card))
+        say(f"phase 16: {name}: host wall traced {run['wall_ms']:.3f} ms, untraced "
+            f"{run['untraced_wall_ms']:.3f} ms; {run['hits']} hits ({card})")
+    launches = line["launches_total"]
+    say(f"phase 16: tools/torch_trace_report.py exit 0, all {BENCH_PLANTED_PAIRS:,} planted "
+        f"pairs, the ring's rows the hitful sweep's, the count kernel the largest category "
+        f"and the traces' launches the counters' in each run; launches {launches}; wall "
+        f"{wall:.1f} s ({card})")
     return launches
 
 
@@ -1686,15 +1707,11 @@ def phase_fit_limit(card: str) -> tuple[dict, int, dict]:
 def main() -> int:
     import torch
 
+    from cuking_tpu_torch.ops import king_cuda
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
-        return 2
-    try:
-        from cuking_tpu_torch.ops import king_cuda
-    except ImportError as e:
-        print(f"chip_smoke: cannot import the port (run from the repository "
-              f"root): {e}", file=sys.stderr)
         return 2
     card = phase_env()
     phase_task_limit(card)  # before this process holds any device memory
@@ -1734,6 +1751,7 @@ def main() -> int:
     launches["cli_at_scale"] = phase_cli_at_scale(card)
     say(f"phase 14: {time.perf_counter() - t:.1f} s ({card})")
     launches["bench"] = phase_bench(card)
+    launches["trace_report"] = phase_trace_report(card)
     # The emit kernel replaces no TPU kernel: the JAX package left the step
     # after the count kernel to XLA, and accumulate_hits is its compaction.
     replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",

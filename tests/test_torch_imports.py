@@ -2,6 +2,7 @@
 jax, cuking_tpu, triton, pyarrow nor hail, its tools load neither jax nor
 cuking_tpu, and chip_smoke.py refuses to run without a CUDA device."""
 
+import json
 import os
 import subprocess
 import sys
@@ -83,6 +84,37 @@ def test_scaling_tool_runs_without_jax():
     ).stdout.split(maxsplit=1)
     assert out[0] == "0"
     assert out[1].strip() == "[]"
+
+
+_TRACE_ALONE = """
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("trace_alone", "cuking_tpu_torch/utils/trace.py")
+trace = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(trace)
+stats = trace.analyze(sys.argv[1])
+sys.path.insert(0, ".")
+from tools import torch_trace_report
+at_import = sorted(k for k in sys.modules if k.split(".")[0] in
+                   ("torch", "jax", "jaxlib", "cuking_tpu", "cuking_tpu_torch"))
+rc = torch_trace_report.main(["--device", "cpu", "--outdir", sys.argv[2]])
+after_run = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "cuking_tpu"))
+print(json.dumps([stats["launches"], at_import, rc, after_run]), file=sys.stderr)
+"""
+
+
+def test_trace_reader_and_tool_load_no_jax_and_torch_lazily(tmp_path):
+    """The trace reader, loaded alone, reads a trace without importing torch
+    (torch.profiler only when a trace is written); the trace tool imports
+    neither torch nor the package until it runs, and loads neither jax nor
+    cuking_tpu through a whole CPU run."""
+    path = tmp_path / "trace.json"
+    path.write_text('{"traceEvents": [{"ph": "X", "cat": "kernel", "ts": 1, "dur": 2, '
+                    '"name": "king_emit_kernel(int const*)", "args": {"device": 0}}]}')
+    proc = subprocess.run([sys.executable, "-c", _TRACE_ALONE, str(path), str(tmp_path / "out")],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    launches, at_import, rc, after_run = json.loads(proc.stderr.splitlines()[-1])
+    assert launches == {"king_counts": 0, "king_emit": 1}
+    assert (at_import, rc, after_run) == ([], 0, [])
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -55,7 +55,6 @@ import numpy as np
 THRESHOLD = 0.4  # clones (kin 0.5) pass; unrelated random pairs do not
 GPU_FAMILIES, CPU_FAMILIES, FAMILY_SIZE = 32, 8, 4
 CAPACITY = 1 << 16
-COUNT_KERNEL = "king_counts_wgmma_kernel"
 
 
 def expected_hits(families: int) -> int:
@@ -103,49 +102,11 @@ def schedule_sub_tiles(num_devices: int, ns: int) -> int:
 
 
 def covered_share(intervals: list) -> dict | None:
-    """The share of transfer time under count-kernel time on the same card.
-    ``intervals`` holds (card, kind, start, end) with kind "transfer" or
-    "kernel"; a transfer counts as covered only by its own card's kernels.
-    None when there is no transfer."""
-    total = covered = events = 0.0
-    for card in {c for c, *_ in intervals}:
-        transfers = sorted((s, e) for c, k, s, e in intervals if c == card and k == "transfer")
-        kernels = sorted((s, e) for c, k, s, e in intervals if c == card and k == "kernel")
-        merged: list = []
-        for s, e in kernels:
-            if merged and s <= merged[-1][1]:
-                merged[-1][1] = max(merged[-1][1], e)
-            else:
-                merged.append([s, e])
-        events += len(transfers)
-        for s, e in transfers:
-            total += e - s
-            covered += sum(max(0.0, min(e, ke) - max(s, ks)) for ks, ke in merged)
-    if not events:
-        return None
-    return {"transfer_ms": total / 1e3, "covered_ms": covered / 1e3,
-            "overlap_fraction": covered / total if total else 1.0,
-            "num_transfers": int(events)}
+    """``cuking_tpu_torch.utils.trace.covered_share``: the share of transfer
+    time under count-kernel time on the same card."""
+    from cuking_tpu_torch.utils.trace import covered_share as share
 
-
-def profiled_intervals(prof) -> list:
-    """(card, kind, start us, end us) of a torch.profiler run's device
-    events: peer copies and NCCL kernels as transfers, the count kernel as
-    kernels."""
-    import torch
-
-    out = []
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        if "Memcpy PtoP" in e.name or e.name.startswith("nccl"):
-            kind = "transfer"
-        elif COUNT_KERNEL in e.name:
-            kind = "kernel"
-        else:
-            continue
-        out.append((e.device_index, kind, e.time_range.start, e.time_range.end))
-    return out
+    return share(intervals)
 
 
 def card_line() -> str:
@@ -289,12 +250,12 @@ def main(argv=None) -> int:
 
     overlap = None
     if per_card and max(ds) >= 2:
-        from torch.profiler import ProfilerActivity, profile
+        from cuking_tpu_torch.utils import trace
 
         mesh, blocks, n = setup(max(ds))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace.traced() as stats:
             sweep(mesh, blocks, n, THRESHOLD + 0.01)
-        overlap = covered_share(profiled_intervals(prof))
+        overlap = stats["transfer_overlap"]
         print(f"transfer under count-kernel time at D={max(ds)}: {overlap}", file=sys.stderr)
 
     print(json.dumps({"weak_scaling": results, "overlap": overlap,

@@ -14,7 +14,7 @@ root it measures, on ``cuda:0``:
 * **Cell A**: the engine at 32,768 samples x 100,000 sites with 64 planted
   duplicate pairs (threshold 0.0884, 528 panel-pair steps): ``--repeats``
   sweeps by the host clock ending in ``torch.cuda.synchronize()``, and one
-  profiled sweep's device busy share (kernel time over wall time).
+  profiled sweep's device busy share (busy time over wall time).
 * **Ring A**: cell A through a ring of 4 positions, all on ``cuda:0``
   (``chip_smoke.py`` phase 6): ``--repeats`` sweeps by the host clock, each
   returning the 64 planted pairs.
@@ -72,19 +72,18 @@ def cell_a_storage():
 
 def busy_share(fn) -> tuple[float, float]:
     """(wall s, device busy share) of ``fn`` under torch.profiler: the
-    device's kernel time over the wall time."""
+    device's busy time (the union of its intervals) over the wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    from cuking_tpu_torch.utils import trace
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace.traced() as stats:
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return wall, busy_us / 1e6 / wall
+    return wall, stats["busy_union_ms"] / 1e3 / wall
 
 
 def measure(repeats: int) -> dict:
