@@ -322,23 +322,28 @@ def min_median_max(runs_s: list) -> list:
 def environment() -> dict:
     """The card's name and power limit (``nvidia-smi``), torch, CUDA and
     nvcc versions; a tool that is absent reads "unavailable"."""
-    def line(cmd, index: int) -> str:
+    def last_line(cmd) -> str:
         try:
             out = subprocess.run(cmd, capture_output=True, text=True, timeout=60,
                                  check=True).stdout.strip().splitlines()
         except (OSError, subprocess.SubprocessError):
             return "unavailable"
-        return out[index] if out else "unavailable"
+        return out[-1] if out else "unavailable"
 
     from torch.utils.cpp_extension import CUDA_HOME
 
+    from cuking_tpu_torch.utils.card import card_name
+
     nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else "nvcc"
+    try:
+        card = card_name()
+    except (OSError, subprocess.SubprocessError, IndexError):
+        card = "unavailable"
     return {
-        "card": line(["nvidia-smi", "--query-gpu=name,power.limit",
-                      "--format=csv,noheader"], 0),
+        "card": card,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
-        "nvcc": line([nvcc, "--version"], -1),
+        "nvcc": last_line([nvcc, "--version"]),
     }
 
 

@@ -160,13 +160,22 @@ Phases (any failure exits nonzero):
     kernel is the largest category of device time, each kernel's events in
     the trace equal its launch counter over the run, and the device's busy
     time fits in its span.  The three tables are printed with the card.
+17. The port's twin of ``tools/chip_probe.py``,
+    ``python3 tools/torch_chip_probe.py --quick`` in a subprocess: the
+    card's int8 and bf16 matmul rates, the count kernel's ms a launch by
+    five timing methods on random, cloned and all-missing planes, and the
+    engine's ms a step beside the kernel's, each with the SM clock and power
+    sampled over its window.  Exit 0 and no failed check, at least 5
+    samples with an SM clock in every window, both peaks at or below 105%
+    of the data sheet, each data kind's counters equal to the plain
+    version.  One line per reading is printed with the card.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
 before a path runs and read just after (phase 10's tasks run in processes
 of their own, so their launches are the kernel events of their traces, and
-phases 15's and 16's are the counts the bench and the trace tool report
-from their own processes); the AND + popcount yardstick may launch on no
+phases 15's, 16's and 17's are the counts the bench, the trace tool and
+the chip probe report from their own processes); the AND + popcount yardstick may launch on no
 path.  Phase 3 also profiles one more sweep for the device's busy share.
 Every trace is read by ``cuking_tpu_torch.utils.trace``.  The
 second-to-last line is the kernels' JSON record; the last line is
@@ -301,12 +310,11 @@ def phase_env() -> str:
     out = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()
     say(f"nvcc: {out[-1] if out else '?'}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
-    say(smi)
-    return smi.splitlines()[0]
+    from cuking_tpu_torch.utils.card import card_name
+
+    card = card_name()
+    say(card)
+    return card
 
 
 # Runs the CLI with its arguments up to its check_engine_fit call, prints the
@@ -1519,6 +1527,60 @@ def phase_trace_report(card: str) -> dict:
     return launches
 
 
+# Phase 17: tools/torch_chip_probe.py at its --quick windows.
+PROBE_TIMEOUT_S = 300
+PROBE_MIN_SAMPLES = 5
+PROBE_PEAK_LIMIT = 1.05
+
+
+def phase_chip_probe(card: str) -> dict:
+    """The port's twin of tools/chip_probe.py in a subprocess: exit 0 and no
+    failed check, every window sampled at least ``PROBE_MIN_SAMPLES`` times
+    with an SM clock, both peaks at or below 105% of the data sheet, and
+    each data kind's counters equal to the plain version."""
+    import torch
+
+    from tools.torch_chip_probe import clock_line
+
+    torch.cuda.empty_cache()  # the tool's process needs the card's memory
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "tools/torch_chip_probe.py", "--quick"], cwd=REPO,
+                          capture_output=True, text=True, timeout=PROBE_TIMEOUT_S)
+    wall = time.perf_counter() - t
+    check(proc.returncode == 0, f"tools/torch_chip_probe.py exited {proc.returncode}:\n"
+                                f"{proc.stdout[-6000:]}\n{proc.stderr[-6000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(line["checks_failed"] == [], f"the chip probe failed {line['checks_failed']}")
+    for label, rec in line["windows"].items():
+        check(rec["sm_samples"] >= PROBE_MIN_SAMPLES,
+              f"the chip probe's window {label}: {rec['sm_samples']} samples with an SM clock")
+    for dtype, sets in line["peak"].items():
+        for operands, r in sets.items():
+            check(r["share_of_datasheet"] <= PROBE_PEAK_LIMIT,
+                  f"the {dtype} peak on {operands} operands: {r['rate']} {r['unit']}")
+            say(f"phase 17: peak {dtype}, {operands} operands: {r['rate']:.1f} {r['unit']}, "
+                f"{100 * r['share_of_datasheet']:.1f}% of the data sheet; "
+                f"{clock_line('window', r['clock'])} ({card})")
+    for kind, k in line["kernel"].items():
+        check(k["counters_equal_plain"], f"the chip probe's {kind} planes: the counters differ "
+                                         f"from the plain version by {k['max_abs_err']}")
+        for method, r in k["methods"].items():
+            say(f"phase 17: kernel, {kind} planes, {method}: {r['ms']:.4f} ms a launch, "
+                f"{100 * r['share_of_bound']:.1f}% of the {r['bound_ms']:.3f} ms bound, "
+                f"{r['tops']:.1f} TOP/s; {clock_line('window', r['clock'])} ({card})")
+    e = line["engine"]
+    say(f"phase 17: engine {e['samples']} x {e['sites']}: {e['step_ms']:.4f} ms a step, the "
+        f"kernel {e['kernel_ms']:.4f} ms a launch on its planes, {e['above_kernel_ms']:.4f} ms "
+        f"a step above it; {clock_line('sweep', e['sweep']['clock'])} ({card})")
+    launches = line["launches_total"]
+    for name in KERNELS:
+        check(launches[name] > 0, f"the chip probe launched no {name} kernel")
+    say(f"phase 17: tools/torch_chip_probe.py --quick exit 0, no failed check, every window "
+        f"sampled, the counters of each data kind the plain version's; launches {launches}; "
+        f"wall {wall:.1f} s ({card})")
+    return launches
+
+
 # Phase 13: the main path at a deployment's shard size, 1,000,000 sites.
 DEPLOY_SITES = 1_000_000
 SHARD_ROWS = 69_632  # 68 panels; its het and hom planes cross words 2^31 and 2^32
@@ -1752,6 +1814,7 @@ def main() -> int:
     say(f"phase 14: {time.perf_counter() - t:.1f} s ({card})")
     launches["bench"] = phase_bench(card)
     launches["trace_report"] = phase_trace_report(card)
+    launches["chip_probe"] = phase_chip_probe(card)
     # The emit kernel replaces no TPU kernel: the JAX package left the step
     # after the count kernel to XLA, and accumulate_hits is its compaction.
     replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",

@@ -34,7 +34,6 @@ import argparse
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -233,14 +232,6 @@ def compare(tag, got, want, log) -> int:
     return n
 
 
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def run_parity(samples: int = 1000, sites: int = 100_000, *, device: str = "cuda",
                threshold: float = 0.0884, split_factor: int = 4, seed: int = 42,
                workdir: str | None = None, log=print) -> dict:
@@ -345,7 +336,9 @@ def main(argv=None) -> int:
             print("torch_baseline_parity: no CUDA device; pass --device cpu to run "
                   "the plain path", file=sys.stderr)
             return 2
-        card = card_line()
+        from cuking_tpu_torch.utils.card import card_name
+
+        card = card_name()
         print(f"card: {card}", file=sys.stderr)
     else:
         card = None

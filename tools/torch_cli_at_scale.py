@@ -846,14 +846,14 @@ def main(argv: list[str] | None = None) -> int:
 
     import torch
 
-    from tools.torch_baseline_parity import card_line
+    from cuking_tpu_torch.utils.card import card_name
 
     if args.device.startswith("cuda"):
         if not torch.cuda.is_available():
             print("torch_cli_at_scale: no CUDA device; pass --device cpu to run the "
                   "plain path", file=sys.stderr)
             return 2
-        card = card_line()
+        card = card_name()
     else:
         card = None
     print(f"card: {card}; torch {torch.__version__}; CPU {cpu_model()}, "

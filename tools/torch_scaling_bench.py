@@ -46,7 +46,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -109,14 +108,6 @@ def covered_share(intervals: list) -> dict | None:
     return share(intervals)
 
 
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-gpu", type=int, default=None,
@@ -140,6 +131,7 @@ def main(argv=None) -> int:
     from cuking_tpu_torch.parallel.ring import (
         RingMesh, all_pairs_presharded, ring_global_counts, ring_num_steps,
     )
+    from cuking_tpu_torch.utils.card import card_name
 
     on_card = args.device == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -163,7 +155,7 @@ def main(argv=None) -> int:
         return 1
     device = {"platform": "gpu" if on_card else "cpu", "count": cards,
               "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-              "card": card_line() if on_card else None, "torch": torch.__version__,
+              "card": card_name() if on_card else None, "torch": torch.__version__,
               "positions": ("one per card" if per_card else
                             "all on cuda:0" if on_card else "cpu")}
     print(f"{device['card'] or 'no card (cpu)'}; torch {torch.__version__}; positions "

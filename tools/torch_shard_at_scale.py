@@ -274,9 +274,9 @@ def main(argv: list[str] | None = None) -> int:
         print("torch_shard_at_scale: no CUDA device", file=sys.stderr)
         return 2
     from cuking_tpu_torch.models.king import KingConfig
-    from tools.torch_baseline_parity import card_line
+    from cuking_tpu_torch.utils.card import card_name
 
-    card = card_line()
+    card = card_name()
     dev = torch.device("cuda", 0)
     config = KingConfig(kernel="cuda", device="cuda")
     size = fit_limit_rows(dev, config)

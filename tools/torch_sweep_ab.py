@@ -178,13 +178,6 @@ def measure(repeats: int) -> dict:
     }
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--roots", default=".",
@@ -202,7 +195,9 @@ def main(argv=None) -> int:
     if args.child:
         print(json.dumps(measure(args.repeats)))
         return 0
-    card = card_line()
+    from cuking_tpu_torch.utils.card import card_name
+
+    card = card_name()
     print(card, flush=True)
     runs = []
     for root in args.roots.split(","):

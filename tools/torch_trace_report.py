@@ -48,7 +48,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -153,13 +152,6 @@ def launch_counts() -> dict:
     return {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches}
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--outdir", default=os.path.join(tempfile.gettempdir(),
@@ -171,6 +163,7 @@ def main(argv=None) -> int:
     import torch
 
     from cuking_tpu_torch.utils import trace
+    from cuking_tpu_torch.utils.card import card_name
 
     on_card = args.device == "cuda"
     if on_card and not torch.cuda.is_available():
@@ -180,7 +173,7 @@ def main(argv=None) -> int:
     sizes = CARD if on_card else CPU
     if on_card:
         torch.cuda.set_device(0)
-        card = card_line()
+        card = card_name()
         device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                   "count": torch.cuda.device_count()}
     else:
