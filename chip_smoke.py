@@ -169,6 +169,25 @@ Phases (any failure exits nonzero):
     samples with an SM clock in every window, both peaks at or below 105%
     of the data sheet, each data kind's counters equal to the plain
     version.  One line per reading is printed with the card.
+18. Shards of a split-5 cohort, off the diagonal above all.  First one
+    whole CLI task of shard 4 = blocks (0, 4) from Parquet at 1,000,000
+    sites (``run_cell``, as phase 14): 20,467 samples (blocks of 4,094 rows,
+    the last of 4,091, each section padded to 4,096; 16 steps), 20 files of
+    462 sites; planted families across the shard's corners, block edges and
+    both sections' panel edges, and inside each block and between each
+    block and the others.  Its rows must be exactly the planted pairs
+    inside the shard, the sampled rows of both sections equal
+    ``pack_genotypes`` at the storage rows ``storage_offsets`` gives, the
+    padding rows all missing, the planes' tallies the shard's samples',
+    the entries kept those of the shard, the peak device memory inside
+    ``check_engine_fit``'s model and the launches one of each kernel per
+    step.  Then all 15 shards of 3,001 x 10,000 (blocks of 601, the last
+    of 597) through the CLI on the card in this process: merged, equal to
+    the split-1 run and to the planted pairs, kin bits and counts; and
+    shard 4 with ``--use_mesh --device cuda:0,cuda:0,cuda:0,cuda:0``
+    (through the rectangular ring, ``ring._rect_ring_fn``, counted) equal
+    to the engine's rows of shard 4.  Its launches are the ``off_diagonal``
+    path's: the task's, read in its process, and this process's.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
 kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
@@ -184,6 +203,7 @@ second-to-last line is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -1581,6 +1601,99 @@ def phase_chip_probe(card: str) -> dict:
     return launches
 
 
+# Phase 18: shards of a split-5 cohort, off the diagonal above all.  The
+# whole task runs shard 4 = blocks (0, 4) of 20,467 samples x 1,000,000
+# sites: blocks of 4,094 rows and a last one of 4,091, each section padded
+# to 4,096 (4 x 4 steps), 20 files of 462 sites over every sample (9,240
+# sites, phase 14's spread of unrelated pairs' kin).
+OFF_DIAG_SAMPLES, OFF_DIAG_FILES, OFF_DIAG_SITES_PER_FILE = 20_467, 20, 462
+OFF_DIAG_SPLIT, OFF_DIAG_SHARD = 5, 4
+# All 15 shards of a small cohort: blocks of 601 and a last one of 597.
+SMALL_SAMPLES, SMALL_SITES = 3_001, 10_000
+
+
+def phase_off_diagonal(card: str) -> dict:
+    """Phase 18: the CLI task of an off-diagonal shard from Parquet at
+    1,000,000 sites (``run_cell``, its rows exactly the planted pairs
+    inside the shard); all 15 shards of a small cohort through the CLI,
+    merged equal to split 1 and to its planted pairs; and shard 4 through
+    the rectangular ring (``--use_mesh``, four positions on cuda:0) equal to
+    the engine's rows."""
+    from cuking_tpu_torch.parallel import ring
+    from tools.torch_cli_at_scale import (
+        Cohort,
+        cohort_for,
+        expected_rows,
+        read_output,
+        run_cell,
+        shard_pairs,
+        write_input,
+    )
+
+    t0 = time.perf_counter()
+    cohort = cohort_for(OFF_DIAG_SAMPLES, files=OFF_DIAG_FILES,
+                        sites_per_file=OFF_DIAG_SITES_PER_FILE,
+                        split_factor=OFF_DIAG_SPLIT, shard_index=OFF_DIAG_SHARD)
+    with tempfile.TemporaryDirectory() as tmp:
+        r = run_cell(cohort, tmp, ingest_runs=0, log=lambda line: say(f"phase 18: {line}"))
+    check(r["ok"], f"the off-diagonal CLI task failed its checks: {r['failures']}")
+    t = r["task"]
+    task_launches = t["launches"]
+    say(f"phase 18: shard {cohort.shard_index} of split {cohort.split_factor} of "
+        f"{cohort.samples:,} x {cohort.sites:,} (samples {r['submatrix']}) from {cohort.files} "
+        f"files: exactly the {r['output']['planted_pairs']:,} planted pairs inside it, none "
+        f"of the {sum(r['planted']['outside_by_blocks'].values()):,} outside it; "
+        f"{t['rows_checked']} rows' planes ({t['sections_checked']} in the i / j section) "
+        f"equal to pack_genotypes, {t['padding_rows']} padding rows all missing, the shard's "
+        f"tallies equal, launches {task_launches}; wall {t['wall_s']:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s with the input) ({card})")
+
+    t1 = time.perf_counter()
+    small = Cohort(samples=SMALL_SAMPLES, sites=SMALL_SITES, files=10, sites_per_file=1000,
+                   seed=SEED)
+    rect_calls = []
+    rect_ring_fn = ring._rect_ring_fn
+
+    def rect_ring_counted(*args, **kw):
+        rect_calls.append(1)
+        return rect_ring_fn(*args, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = f"{tmp}/in.parquet"
+        write_input(small, inp, threads=os.cpu_count() or 1)
+        shard4 = ["--split_factor", str(OFF_DIAG_SPLIT), "--shard_index", str(OFF_DIAG_SHARD)]
+        reset_launches()
+        run_cli(inp, f"{tmp}/split1", "--device", "cuda")
+        for shard in range(15):
+            run_cli(inp, f"{tmp}/split5", "--device", "cuda", "--split_factor",
+                    str(OFF_DIAG_SPLIT), "--shard_index", str(shard))
+        run_cli(inp, f"{tmp}/shard4", "--device", "cuda", *shard4)
+        ring._rect_ring_fn = rect_ring_counted
+        try:
+            run_cli(inp, f"{tmp}/ring4", "--use_mesh", "--device",
+                    "cuda:0,cuda:0,cuda:0,cuda:0", *shard4)
+        finally:
+            ring._rect_ring_fn = rect_ring_fn
+        launches = read_launches("the off-diagonal CLIs")
+        split1, split5, engine4, ring4 = (read_output(f"{tmp}/{d}")
+                                          for d in ("split1", "split5", "shard4", "ring4"))
+    planted = expected_rows(small)
+    in_shard4, _ = shard_pairs(dataclasses.replace(small, split_factor=OFF_DIAG_SPLIT,
+                                                   shard_index=OFF_DIAG_SHARD), planted)
+    check(split1 == planted, f"split 1 of {SMALL_SAMPLES:,} x {SMALL_SITES:,}: "
+                             f"{len(split1)} rows, not the {len(planted)} planted pairs")
+    check(split5 == split1, "the 15 shards merged differ from split 1")
+    check(engine4 == in_shard4 and len(in_shard4) > 0,
+          f"shard 4: {len(engine4)} rows, not the {len(in_shard4)} planted pairs inside it")
+    check(len(rect_calls) == 1, f"the mesh CLI ran the rectangular ring {len(rect_calls)} times")
+    check(ring4 == engine4, "the rectangular ring's rows differ from the engine's")
+    say(f"phase 18: {SMALL_SAMPLES:,} x {SMALL_SITES:,}: the 15 shards of split 5 merged == "
+        f"split 1 == the {len(planted):,} planted pairs, kin bits and counts; shard 4 through "
+        f"the rectangular ring on 4 positions of cuda:0 == the engine's {len(engine4):,} rows; "
+        f"{launches} launches in this process; {time.perf_counter() - t1:.1f} s ({card})")
+    return add_launches(task_launches, launches)
+
+
 # Phase 13: the main path at a deployment's shard size, 1,000,000 sites.
 DEPLOY_SITES = 1_000_000
 SHARD_ROWS = 69_632  # 68 panels; its het and hom planes cross words 2^31 and 2^32
@@ -1815,6 +1928,9 @@ def main() -> int:
     launches["bench"] = phase_bench(card)
     launches["trace_report"] = phase_trace_report(card)
     launches["chip_probe"] = phase_chip_probe(card)
+    t = time.perf_counter()
+    launches["off_diagonal"] = phase_off_diagonal(card)
+    say(f"phase 18: {time.perf_counter() - t:.1f} s ({card})")
     # The emit kernel replaces no TPU kernel: the JAX package left the step
     # after the count kernel to XLA, and accumulate_hits is its compaction.
     replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",

@@ -29,6 +29,23 @@ on the H100 host's 8 CPUs.
 
     python3 tools/torch_capacity_plan.py --samples 150000 --sites 1000000
 
+The plan against a task that ran it: for 730,947 x 1,000,000 the plan
+gives split 5 and a worst shard of 73,220,685,824 B of planes (blocks (0,
+1), both full) against a limit of 77,707,883,315 B.  Shard 4 = blocks (0,
+4), whose last block holds 3 samples fewer, stores as many rows (each
+section pads to 146,432), and its CLI task on an NVIDIA H100 80GB HBM3 at
+700.00 W (cell R, ``tools/torch_cli_at_scale.py --split-factor 5
+--shard-index 4``) read in ``check_engine_fit`` the plan's free memory to
+the byte (84,465,090,560 B of 85,017,493,504 B) and so the same limit; its
+model of the shard was 73,740,779,520 B and its peak device memory
+73,296,183,808 B, 424.0 MiB under the model and 4.41 GB under the limit.
+Its peak host RSS was 80,465 MiB (sampled every 50 ms), 10,637 MiB beside
+the planes on 8 decoders, inside ``cloud/batch_submit.py``'s 107,520 MiB
+request; the plan models no host memory.  Its time outside ingest and the
+sweep was ~66 s (allocation 45.6 s, upload 11.7 s, ~8 s of start-up)
+against ``STARTUP_S``'s 36, and its ingest read 71.8M entries/s (it keeps
+40% of them) against ``INGEST_ENTRIES_PER_S``'s 21.8M, a split-1 reading.
+
 Prints the plan and one JSON line last.  Exits 1 when no split factor fits.
 """
 

@@ -3,6 +3,8 @@
 its ingest stage alone.
 
     python3 tools/torch_cli_at_scale.py                              # cell O
+    python3 tools/torch_cli_at_scale.py --samples 730947 --files 1047 --split-factor 5 \\
+        --shard-index 4 --ingest-runs 0 --ab-runs 0                  # cell R
     python3 tools/torch_cli_at_scale.py --samples 16384 --files 16 --ingest-runs 0 \\
         --ab-runs 0                                                  # chip_smoke.py phase 14
     python3 tools/torch_cli_at_scale.py --device cpu --samples 600 --sites 4000 \\
@@ -38,6 +40,21 @@ family's seed, their own elsewhere: kin ~0.25, counters that differ from
 pair to pair).  Rows 0 and N - 1 are a clone pair, and rows 1,023 / 1,024
 and 2,047 / 2,048 (panel edges) sit in a half-copy family.
 
+``--split-factor k --shard-index s`` makes the task one shard of a split
+cohort (cell R: 730,947 x 1,000,000, split 5, shard 4 = blocks (0, 4), its
+i-range stored before its j-range, each padded to a panel multiple).  The
+families then follow the shard: the shard's first i-row and last j-row are
+the clone pair, and a half-copy family holds the block edges, the panel
+edges of both sections (storage rows 1,023 / 1,024 of each), the j
+section's first and last panels and a row of another block; the other
+members are drawn from the whole cohort as before.  So the planted pairs
+fall inside the shard, inside either block and between each block and the
+others, and the output must be exactly those inside the shard.  The planes
+check samples rows of both sections at the storage rows that
+``PanelStorage.storage_offsets`` gives (held to the layout's own arithmetic
+as well) and the padding rows of both sections, the class tallies count
+the shard's samples only, and the launches are the shard's steps.
+
 The tool writes the input (timed, outside every other window), then:
 
 1. runs ``python3 -m cuking_tpu_torch.cli``'s ``main`` in a child process
@@ -68,6 +85,10 @@ The tool writes the input (timed, outside every other window), then:
    (``ops/oracle.oracle_king``) on the regenerated genotypes.
 
 Prints the card's name and power limit, torch, the CPU model and count,
+each stage (allocation, ingest with its entries read and kept, upload,
+sweep and its ms a step), the launches, the peak device memory against
+``check_engine_fit``'s model and the limit it read, and the peak host RSS
+against ``cloud/batch_submit.py``'s terms, the card beside every number,
 and one JSON line last.  Exits 1 when a check fails, 2 without a card
 unless ``--device cpu``.  The input is deleted at exit.
 """
@@ -75,6 +96,7 @@ unless ``--device cpu``.  The input is deleted at exit.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -171,13 +193,48 @@ def splitmix64(x: np.ndarray) -> np.ndarray:
 @dataclass(frozen=True)
 class Cohort:
     """The seeded cohort: ``files`` files of ``sites_per_file`` consecutive
-    sites each over all ``samples``; sites past them have no entries."""
+    sites each over all ``samples``; sites past them have no entries.  The
+    task is shard ``shard_index`` of ``split_factor``."""
 
     samples: int = SAMPLES
     sites: int = SITES
     files: int = FILES
     sites_per_file: int = 63
     seed: int = SEED
+    split_factor: int = 1
+    shard_index: int = 0
+
+    @cached_property
+    def submatrix(self):
+        from cuking_tpu_torch.parallel.submatrix import Submatrix
+
+        return Submatrix.create(self.samples, self.split_factor, self.shard_index)
+
+    @property
+    def block_size(self) -> int:
+        return -(-self.samples // self.split_factor)
+
+    def special_rows(self) -> list[int]:
+        """The rows planted first: the clone pair, then the half-copy
+        family's edges.  At split 1 rows 0 / N - 1 and the panel edges
+        1,023 / 1,024 and 2,047 / 2,048.  For a shard: its first i-row and
+        last j-row; then its second i-row, the i section's panel edges and
+        last row, a row of another block, and the j section's first two
+        rows, panel edges and its last panel's first row and the row
+        before it."""
+        n = self.samples
+        if self.split_factor == 1:
+            rows = [0, n - 1, 1023, 1024, 2047, 2048]
+        else:
+            sm = self.submatrix
+            j_last = sm.j_begin + (sm.num_cols - 1) // PANEL * PANEL
+            other = (sm.i_end if sm.i_end < sm.j_begin
+                     else sm.j_end if sm.j_end < n else sm.i_begin - 1)
+            rows = [sm.i_begin, sm.j_end - 1,
+                    sm.i_begin + 1, sm.i_begin + 1023, sm.i_begin + 1024, sm.i_end - 1, other,
+                    sm.j_begin, sm.j_begin + 1, sm.j_begin + 1023, sm.j_begin + 1024,
+                    j_last - 1, j_last]
+        return [r for r in dict.fromkeys(rows) if 0 <= r < n]
 
     @property
     def written_sites(self) -> int:
@@ -197,13 +254,12 @@ class Cohort:
         sizes = list(FAMILY_SIZES) * cycles
         while sum(sizes) > self.samples // 4:  # plant at most a quarter
             sizes.remove(max(sizes))
-        special = [r for r in dict.fromkeys((0, self.samples - 1, 1023, 1024, 2047, 2048))
-                   if r < self.samples]
+        special = self.special_rows()
         rest = np.setdiff1d(np.arange(self.samples), special)
         order = np.random.default_rng(self.seed).permutation(rest)
         rows = np.concatenate([special, order[:sum(sizes) - len(special)]]).astype(np.int64)
-        # Family 0 is the clone pair (0, N - 1); family 1 (half-copies) holds
-        # the panel edges.
+        # Family 0 is the clone pair (0, N - 1, or the shard's corners);
+        # family 1 (half-copies) holds the panel and block edges.
         out, k = [], 0
         for m in sizes:
             out.append((rows[k:k + m], m in HALF_COPY_SIZES))
@@ -266,11 +322,12 @@ class Cohort:
 
 
 def cohort_for(samples: int = SAMPLES, sites: int = SITES, files: int = FILES,
-               sites_per_file: int | None = None, seed: int = SEED) -> Cohort:
+               sites_per_file: int | None = None, seed: int = SEED,
+               split_factor: int = 1, shard_index: int = 0) -> Cohort:
     """A cohort whose files hold ~``CELLS_PER_FILE`` cells each, unless
     ``sites_per_file`` is given."""
     spf = sites_per_file or max(1, round(CELLS_PER_FILE / samples))
-    return Cohort(samples, sites, files, spf, seed)
+    return Cohort(samples, sites, files, spf, seed, split_factor, shard_index)
 
 
 # -- The input ------------------------------------------------------------
@@ -287,8 +344,14 @@ def file_entries(cohort: Cohort, f: int) -> tuple[np.ndarray, np.ndarray, np.nda
     return row_idx, col_idx, g.ravel()[idx].astype(np.int32)
 
 
-def write_file(cohort: Cohort, input_dir: str, f: int) -> tuple[int, np.ndarray, int]:
-    """Writes file ``f``; (entries, [hom-ref, het, hom-alt] tally, bytes)."""
+def tally(n_alt: np.ndarray) -> np.ndarray:
+    """[hom-ref, het, hom-alt] counts."""
+    return np.bincount(n_alt, minlength=3)[:3].astype(np.int64)
+
+
+def write_file(cohort: Cohort, input_dir: str, f: int) -> tuple[int, np.ndarray, int, np.ndarray]:
+    """Writes file ``f``; (entries, [hom-ref, het, hom-alt] tally, bytes,
+    the tally of the shard's samples alone)."""
     import pyarrow as pa
     import pyarrow.parquet as pq
 
@@ -298,12 +361,19 @@ def write_file(cohort: Cohort, input_dir: str, f: int) -> tuple[int, np.ndarray,
                       "n_alt_alleles": pa.array(n_alt, pa.int32())})
     path = os.path.join(input_dir, f"part-{f:05d}-c000.zstd.parquet")
     pq.write_table(table, path, compression="zstd")
-    return len(n_alt), np.bincount(n_alt, minlength=3)[:3].astype(np.int64), os.path.getsize(path)
+    return (len(n_alt), tally(n_alt), os.path.getsize(path),
+            tally(n_alt[cohort.submatrix.contains(col_idx)]))
 
 
 def write_input(cohort: Cohort, input_dir: str, threads: int) -> dict:
     """The input directory (files and ``metadata.json``); entries, bytes,
-    seconds and the class tallies of every file."""
+    seconds, the class tallies of every file and those of the shard's
+    samples (its entries: what the task's ingest keeps)."""
+    # Imported here, on the calling thread: a first import of pyarrow inside
+    # a pool's worker left a later pq.read_table on this thread to crash
+    # with SIGSEGV (torch 2.13 for the CPU, pyarrow's own wheel).
+    import pyarrow.parquet  # noqa: F401
+
     from cuking_tpu_torch.io.metadata import InputMetadata, write_metadata
     from cuking_tpu_torch.io.uri import Storage
 
@@ -318,21 +388,45 @@ def write_input(cohort: Cohort, input_dir: str, threads: int) -> dict:
             "write_s": time.perf_counter() - t,
             "file_tallies": [d[1].tolist() for d in done],
             "file_entries": [d[0] for d in done],
-            "tallies": np.sum([d[1] for d in done], axis=0).tolist()}
+            "tallies": np.sum([d[1] for d in done], axis=0).tolist(),
+            "shard_tallies": np.sum([d[3] for d in done], axis=0).tolist(),
+            "shard_entries": int(sum(d[3].sum() for d in done))}
 
 
 # -- Checks ---------------------------------------------------------------
 
 
 def checked_rows(cohort: Cohort, extra_random: int = 256) -> np.ndarray:
-    """Rows 0 and N - 1, every planted row, the panel edges 1,023 / 1,024
-    and ``extra_random`` seeded random rows."""
-    n = cohort.samples
+    """The shard's samples among rows 0 and N - 1, the panel edges 1,023 /
+    1,024, the special rows (:meth:`Cohort.special_rows`: both sections'
+    edges), every planted row and ``extra_random`` seeded random rows of
+    the shard."""
+    n, sm = cohort.samples, cohort.submatrix
     planted = np.concatenate([rows for rows, _ in cohort.families])
     rng = np.random.default_rng(cohort.seed + 1)
-    rows = np.concatenate([[0, n - 1, 1023, 1024], planted,
-                           rng.integers(0, n, extra_random)])
-    return np.unique(rows[rows < n])
+    stored = sm.stored_sample_indices()
+    rows = np.concatenate([[0, n - 1, 1023, 1024], cohort.special_rows(), planted,
+                           stored[rng.integers(0, len(stored), extra_random)]])
+    rows = np.unique(rows[rows < n])
+    return rows[sm.contains(rows)]
+
+
+def layout_rows(submatrix, panel: int, rows: np.ndarray) -> np.ndarray:
+    """Storage rows of the shard's samples ``rows`` by the layout's own
+    arithmetic (the i-range from row 0, the j-range after the i-range padded
+    to a multiple of ``panel``), to hold ``storage_offsets`` to."""
+    i_pad = -(-submatrix.num_rows // panel) * panel
+    in_j = (rows >= submatrix.i_end) & ~submatrix.is_diagonal
+    return np.where(in_j, i_pad + rows - submatrix.j_begin, rows - submatrix.i_begin)
+
+
+def padding_rows(storage) -> np.ndarray:
+    """Storage rows past each section's samples (the i section's, then the
+    j section's off the diagonal)."""
+    pad = np.arange(storage.nr, storage.nr_pad)
+    if not storage.submatrix.is_diagonal:
+        pad = np.concatenate([pad, storage.j_store_base + np.arange(storage.nc, storage.nc_pad)])
+    return pad
 
 
 def plane_mismatches(planes: np.ndarray, offsets: np.ndarray, cohort: Cohort,
@@ -398,6 +492,40 @@ def expected_rows(cohort: Cohort, threshold: float = THRESHOLD) -> dict:
     low = [k for k, v in want.items() if not np.uint32(v[0]).view(np.float32) > threshold]
     check(not low, f"{len(low)} planted pairs lie at or below {threshold}, e.g. {low[:3]}")
     return want
+
+
+def shard_pairs(cohort: Cohort, want: dict) -> tuple[dict, dict]:
+    """The planted pairs (``want``, i < j) that the shard computes (both in
+    the shard, i in its i-range and j in its j-range), and the others
+    counted by blocks: "blocks a-b" with a <= b."""
+    sm, size = cohort.submatrix, cohort.block_size
+    inside, outside = {}, {}
+    for (i, j), v in want.items():
+        if sm.i_begin <= i < sm.i_end and sm.j_begin <= j < sm.j_end:
+            inside[i, j] = v
+        else:
+            kind = f"blocks {i // size}-{j // size}"
+            outside[kind] = outside.get(kind, 0) + 1
+    return inside, outside
+
+
+def missing_kinds(cohort: Cohort, outside: dict) -> list[str]:
+    """The kinds of planted pair outside the shard that a shard of a split
+    cohort must have, so that its output shows it writes none of them: pairs
+    inside each of its blocks, and between each of its blocks and another
+    block; those of ``outside`` that are not there."""
+    if cohort.split_factor == 1:
+        return []
+    size = cohort.block_size
+    blocks = {cohort.submatrix.i_begin // size, cohort.submatrix.j_begin // size}
+    counted = {tuple(map(int, k.split()[1].split("-"))): n for k, n in outside.items()}
+    missing = []
+    for b in sorted(blocks):
+        if (b, b) not in counted and len(blocks) == 2:
+            missing.append(f"inside block {b}")
+        if not any(b in ab and not set(ab) <= blocks for ab in counted):
+            missing.append(f"block {b} with a block outside the shard")
+    return missing
 
 
 def read_output(output_dir: str) -> dict:
@@ -561,30 +689,54 @@ def child() -> None:
 
 
 def _task_child(spec: dict, rss: PeakRss) -> None:
-    import torch
+    import gc
 
+    import torch
 
     from cuking_tpu_torch import cli
     from cuking_tpu_torch.models.king import KingEngine
     from cuking_tpu_torch.native import packer
     from cuking_tpu_torch.ops import king_cuda, king_emit
+    from cuking_tpu_torch.utils.hbm import (
+        device_bytes_limit,
+        engine_plane_bytes,
+        sweep_buffer_bytes,
+    )
+    from tools.torch_capacity_plan import shard_steps
 
-    captured, upload = {}, {}
-    ingest = cli.ingest_parquet
+    captured, upload, fit = {}, {}, {}
+    ingest, check_fit = cli.ingest_parquet, cli.check_engine_fit
 
     def ingest_captured(storage, files, panel_storage, **kw):
         captured["storage"] = panel_storage
+        captured["split"] = IngestSplit(storage, panel_storage, SETTINGS["package"])
         return ingest(storage, files, panel_storage, **kw)
 
+    def check_fit_read(num_samples, words, submatrix, config, split_factor, **kw):
+        # What the CLI's own check reads: the free memory, its limit and its
+        # model of the shard's need.
+        if cuda:
+            fit["free_bytes"], fit["total_bytes"] = torch.cuda.mem_get_info(config.device)
+        fit["limit_bytes"] = device_bytes_limit(config.device)
+        fit["model_bytes"] = (engine_plane_bytes(submatrix, words, config.panel)
+                              + sweep_buffer_bytes(config))
+        return check_fit(num_samples, words, submatrix, config, split_factor, **kw)
+
     cli.ingest_parquet = ingest_captured
+    cli.check_engine_fit = check_fit_read
     planes_dev = KingEngine.planes_dev.fget
     cuda = spec["device"].startswith("cuda")
 
     def planes_dev_timed(engine):
         if engine._planes_dev_cache is not None:
             return planes_dev(engine)
+        captured["config"] = engine.config
         if cuda:
+            gc.collect()
             torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            upload["base"] = torch.cuda.memory_allocated()
         t = time.perf_counter()
         out = planes_dev(engine)
         if cuda:
@@ -599,16 +751,32 @@ def _task_child(spec: dict, rss: PeakRss) -> None:
     task_s = time.perf_counter() - t
     out = {"rc": rc, "task_s": task_s, "upload_s": upload.get("s"),
            "launches": {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches},
-           "peak_rss": rss.readings(), "usable_cpus": packer.usable_cpus()}
+           "peak_rss": rss.readings(), "usable_cpus": packer.usable_cpus(), "fit": fit}
+    if cuda and "base" in upload:
+        fit["peak_device_bytes"] = torch.cuda.max_memory_allocated() - upload["base"]
     if rc == 0:
-        st = captured["storage"]
+        st, split = captured["storage"], captured["split"]
         cohort = Cohort(**spec["cohort"])
         rows = checked_rows(cohort)
         t = time.perf_counter()
+        offsets = st.storage_offsets(rows)
+        out["ingest_entries"], out["ingest_kept"] = split.entries, split.kept
+        out["panel"] = st.panel
+        out["steps"] = shard_steps(cohort.samples, cohort.split_factor,
+                                   st.panel)[cohort.shard_index]
         out["planes_bytes"] = st.planes.nbytes
+        out["stored_rows"] = st.planes.shape[1]
         out["rows_checked"] = len(rows)
-        out["rows_differing"] = plane_mismatches(st.planes, st.storage_offsets(rows), cohort,
+        in_j = np.zeros(len(rows), bool) if st.submatrix.is_diagonal else offsets >= st.j_store_base
+        out["sections_checked"] = [int((~in_j).sum()), int(in_j.sum())]
+        out["offsets_differing"] = rows[offsets != layout_rows(st.submatrix, st.panel, rows)
+                                        ].tolist()[:10]
+        out["rows_differing"] = plane_mismatches(st.planes, offsets, cohort,
                                                  rows, threads=len(spec["cpus"]))
+        pad = padding_rows(st)
+        out["padding_rows"] = len(pad)
+        out["padding_not_missing"] = pad[(st.planes[:, pad] != 0xFFFFFFFF).any(axis=(0, 2))
+                                         ].tolist()[:10]
         out["plane_tallies"] = plane_tallies(st.planes, threads=len(spec["cpus"]))
         out["check_s"] = time.perf_counter() - t
     print(json.dumps(out), flush=True)
@@ -693,7 +861,9 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
              ingest_runs: int = 3, ab_runs: int = 0, log=print) -> dict:
     """Writes the input under ``workdir``, runs the task and the ingest
     runs, and checks them; the result dict (``ok`` false on a failed
-    check).  The input is deleted before it returns."""
+    check).  The input is deleted before it returns.  On a card every
+    line logged ends with its name and power limit."""
+    from cuking_tpu_torch.cloud.batch_submit import DEFAULT_MEMORY_MIB
     from cuking_tpu_torch.native import packer
     from tools.torch_shard_at_scale import settled_host_available_bytes
 
@@ -702,27 +872,43 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
     check(packer.available(), "the native packer did not build")
     if device.startswith("cuda"):
         from cuking_tpu_torch.ops import king_cuda
+        from cuking_tpu_torch.utils.card import card_name
 
         king_cuda.build()  # a task's image holds the library prebuilt
+        card = card_name()
+    else:
+        card = f"--device {device}, no card"
+
+    def say(line: str) -> None:
+        log(f"{line} ({card})")
+
     input_dir = os.path.join(workdir, "input.parquet")
     output_dir = os.path.join(workdir, "output.parquet")
+    sm = cohort.submatrix
     result = {"samples": cohort.samples, "sites": cohort.sites, "files": cohort.files,
               "sites_per_file": cohort.sites_per_file, "written_sites": cohort.written_sites,
-              "cpus": len(all_cpus), "task_cpus": len(task), "device": device}
+              "split_factor": cohort.split_factor, "shard_index": cohort.shard_index,
+              "submatrix": [sm.i_begin, sm.i_end, sm.j_begin, sm.j_end],
+              "cpus": len(all_cpus), "task_cpus": len(task), "device": device, "card": card}
     try:
         w = write_input(cohort, input_dir, threads=len(all_cpus))
-        result["input"] = {k: w[k] for k in ("entries", "bytes", "write_s", "tallies")}
-        log(f"wrote {cohort.files} files, {w['entries']:,} entries, {w['bytes']:,} B "
+        result["input"] = {k: w[k] for k in ("entries", "bytes", "write_s", "tallies",
+                                             "shard_entries", "shard_tallies")}
+        say(f"wrote {cohort.files} files, {w['entries']:,} entries, {w['bytes']:,} B "
             f"({w['bytes'] / w['entries']:.2f} B per entry) in {w['write_s']:.1f} s "
-            f"on {len(all_cpus)} threads; tallies hom-ref/het/hom-alt {w['tallies']}")
-        want = expected_rows(cohort)
+            f"on {len(all_cpus)} threads; tallies hom-ref/het/hom-alt {w['tallies']}, "
+            f"{w['shard_entries']:,} entries of the shard's samples")
+        want, outside = shard_pairs(cohort, expected_rows(cohort))
+        result["planted"] = {"in_shard": len(want), "outside_by_blocks": outside}
+        say(f"shard {cohort.shard_index} of split {cohort.split_factor}: samples "
+            f"[{sm.i_begin:,}, {sm.i_end:,}) x [{sm.j_begin:,}, {sm.j_end:,}); "
+            f"{len(want):,} planted pairs inside it, {sum(outside.values()):,} outside it "
+            f"(by blocks: {outside})")
         argv = ["--input_uri", input_dir, "--output_uri", output_dir,
-                "--kin_threshold", str(THRESHOLD), "--split_factor", "1",
-                "--shard_index", "0", "--device", device]
+                "--kin_threshold", str(THRESHOLD), "--split_factor", str(cohort.split_factor),
+                "--shard_index", str(cohort.shard_index), "--device", device]
         spec = {"mode": "task", "cpus": task, "device": device, "argv": argv,
-                "cohort": {"samples": cohort.samples, "sites": cohort.sites,
-                           "files": cohort.files, "sites_per_file": cohort.sites_per_file,
-                           "seed": cohort.seed}}
+                "cohort": dataclasses.asdict(cohort)}
         parent_rss = rss_readings()
         out, task_log, wall = run_child(spec, timeout=3000)
         check(out["rc"] == 0, f"the CLI task exited {out['rc']}:\n{task_log[-4000:]}")
@@ -733,28 +919,53 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
         # The task's own peak, read in the child before its checks ran.
         own, source = own_peak(out["peak_rss"])
         beside = (own - out["planes_bytes"]) / 2**20
+        fit = out["fit"]
         result["task"] = {
             "wall_s": wall, "main_s": out["task_s"], "stages_s": stages,
-            "launches": out["launches"],
+            "steps": out["steps"], "sweep_ms_per_step": 1e3 * stages["sweep"] / out["steps"],
+            "ingest_entries": out["ingest_entries"], "ingest_kept": out["ingest_kept"],
+            "launches": out["launches"], "fit": fit, "panel": out["panel"],
             "rusage_children_maxrss_bytes": peak, "peak_rss_before_checks": out["peak_rss"],
-            "parent_rss_before_it": parent_rss,
-            "planes_bytes": out["planes_bytes"], "rss_beside_planes_mib": beside,
-            "rows_checked": out["rows_checked"], "rows_differing": out["rows_differing"][:10],
+            "parent_rss_before_it": parent_rss, "peak_rss_bytes": own,
+            "planes_bytes": out["planes_bytes"], "stored_rows": out["stored_rows"],
+            "rss_beside_planes_mib": beside,
+            "rows_checked": out["rows_checked"], "sections_checked": out["sections_checked"],
+            "rows_differing": out["rows_differing"][:10],
+            "offsets_differing": out["offsets_differing"],
+            "padding_rows": out["padding_rows"],
+            "padding_not_missing": out["padding_not_missing"],
             "plane_tallies": out["plane_tallies"], "check_s": out["check_s"]}
-        log(f"task: exit 0, the process {wall:.1f} s (the CLI's main {out['task_s']:.1f} s, "
+        t = result["task"]
+        say(f"task: exit 0, the process {wall:.1f} s (the CLI's main {out['task_s']:.1f} s, "
             f"the checks after it {out['check_s']:.1f} s) on {len(task)} CPUs; stages "
             + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
-        log(f"task: launches {out['launches']}; peak RSS {own / 2**20:,.0f} MiB before the "
+        say(f"task: allocation {stages['allocate']:.3f} s for {out['planes_bytes']:,} B of "
+            f"planes ({out['stored_rows']:,} stored rows); ingest {stages['ingest']:.3f} s, "
+            f"{out['ingest_entries']:,} entries read ({out['ingest_entries'] / stages['ingest'] / 1e6:.2f}M/s), "
+            f"{out['ingest_kept']:,} kept; upload {stages['upload']:.3f} s "
+            f"({out['planes_bytes'] / stages['upload'] / 1e9:.2f} GB/s); sweep "
+            f"{stages['sweep']:.3f} s, {t['steps']:,} steps at panel {out['panel']}, "
+            f"{t['sweep_ms_per_step']:.3f} ms a step")
+        if "peak_device_bytes" in fit:
+            say(f"task: check_engine_fit read {fit['free_bytes']:,} B free of "
+                f"{fit['total_bytes']:,} B, a limit of {fit['limit_bytes']:,} B, and modelled "
+                f"{fit['model_bytes']:,} B; peak device memory {fit['peak_device_bytes']:,} B, "
+                f"{(fit['model_bytes'] - fit['peak_device_bytes']) / 2**20:,.1f} MiB inside "
+                f"the model")
+        say(f"task: launches {out['launches']}; peak RSS {own / 2**20:,.0f} MiB before the "
             f"checks, its own ({source}; its ru_maxrss {out['peak_rss']['ru_maxrss_bytes'] / 2**20:,.0f} "
             f"MiB and RUSAGE_CHILDREN {peak / 2**20:,.0f} MiB, with the checks, can hold this "
             f"process's peak, {parent_rss['ru_maxrss_bytes'] / 2**20:,.0f} MiB), "
             f"{beside:,.0f} MiB beside the planes' {out['planes_bytes'] / 2**20:,.0f} MiB "
-            f"(batch_submit.py: {INGEST_TERM_MIB:,} + {PROCESS_TERM_MIB:,} MiB); checks "
-            f"{out['check_s']:.1f} s")
+            f"(batch_submit.py: {INGEST_TERM_MIB:,} + {PROCESS_TERM_MIB:,} MiB beside them, "
+            f"{DEFAULT_MEMORY_MIB:,} MiB requested in all); checks {out['check_s']:.1f} s: "
+            f"{out['rows_checked']:,} rows' planes ({out['sections_checked']} in the i / j "
+            f"section), {out['padding_rows']:,} padding rows")
         got = read_output(output_dir)
         diff = row_differences(got, want)
         result["output"] = {"rows": len(got), "planted_pairs": len(want), **diff}
-        log(f"output: {len(got):,} rows against {len(want):,} planted pairs: {diff}")
+        say(f"output: {len(got):,} rows against {len(want):,} planted pairs in the shard: "
+            f"{diff}")
         result["ingest"] = []
         plan = ingest_plan(cohort.files, ingest_runs, ab_runs, all_cpus, task)
         for run in plan:
@@ -763,7 +974,7 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
             settled_host_available_bytes()
             r, _, _ = run_child(dict(run, mode="ingest", input=input_dir), timeout=3000)
             result["ingest"].append(r)
-            log(f"ingest: {r['cpus']} CPUs, {r['setting']}, split {r['split_factor']}, "
+            say(f"ingest: {r['cpus']} CPUs, {r['setting']}, split {r['split_factor']}, "
                 f"{r['files']} files: "
                 f"{r['entries']:,} entries in {r['ingest_s']:.2f} s = "
                 f"{r['entries_per_s'] / 1e6:.2f}M entries/s (allocation {r['alloc_s']:.2f} s); "
@@ -776,19 +987,30 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
     finally:
         shutil.rmtree(input_dir, ignore_errors=True)
         shutil.rmtree(output_dir, ignore_errors=True)
-    failures = []
-    t = result["task"]
+    failures = [f"the cohort plants no pair {kind}" for kind in missing_kinds(cohort, outside)]
     if t["rows_differing"]:
         failures.append(f"planes differ from pack_genotypes in rows {t['rows_differing']}")
-    if t["plane_tallies"] != w["tallies"]:
-        failures.append(f"plane tallies {t['plane_tallies']} != written {w['tallies']}")
+    if t["offsets_differing"]:
+        failures.append(f"storage_offsets differs from the layout in rows {t['offsets_differing']}")
+    if not cohort.submatrix.is_diagonal and min(t["sections_checked"]) == 0:
+        failures.append(f"the planes check missed a section: {t['sections_checked']}")
+    if t["padding_not_missing"]:
+        failures.append(f"padding rows hold defined sites: {t['padding_not_missing']}")
+    if t["plane_tallies"] != w["shard_tallies"]:
+        failures.append(f"plane tallies {t['plane_tallies']} != the shard's written "
+                        f"{w['shard_tallies']}")
+    if (t["ingest_entries"], t["ingest_kept"]) != (w["entries"], w["shard_entries"]):
+        failures.append(f"the task's ingest read {t['ingest_entries']} and kept "
+                        f"{t['ingest_kept']} entries, not {w['entries']} and {w['shard_entries']}")
     if diff["missing"] or diff["extra"] or diff["wrong"]:
         failures.append(f"output rows differ from the planted pairs: {diff}")
     if device.startswith("cuda"):
-        panels = -(-cohort.samples // PANEL)
-        steps = panels * (panels + 1) // 2
+        steps = t["steps"]
         if t["launches"] != {"king_counts": steps, "king_emit": steps}:
             failures.append(f"launches {t['launches']}, expected {steps} of each kernel")
+        if not t["fit"].get("peak_device_bytes", np.inf) <= t["fit"]["model_bytes"]:
+            failures.append(f"peak device memory {t['fit'].get('peak_device_bytes')} B "
+                            f"over check_engine_fit's model {t['fit']['model_bytes']} B")
     per_file = np.array(w["file_entries"])
     for r in result["ingest"]:
         if r["entries"] != per_file[:r["files"]].sum():
@@ -798,32 +1020,50 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
     return result
 
 
+# Host memory a task takes beside its planes (cell O: 11,258-12,787 MiB on
+# 8 decoders), and input bytes per Parquet entry (1.92 measured in
+# chip_smoke.py phase 14), each with a margin.
+HOST_RESERVE_BYTES = 16 << 30
+INPUT_BYTES_PER_ENTRY = 3.0
+
+
 def reckon(cohort: Cohort, workdir: str) -> tuple[Cohort, list[str]]:
-    """Sizes the cut to the disk and host memory: the input at up to 9 B an
-    entry within 90% of the free disk, the planes and an 8 GiB reserve
-    within the host's available memory; the cohort to run and what was
-    cut."""
+    """Sizes the cut to the disk and host memory: the input at
+    :data:`INPUT_BYTES_PER_ENTRY` within 90% of the free disk, the shard's
+    planes and :data:`HOST_RESERVE_BYTES` within the host's available
+    memory (fewer samples, the same split and shard, when they are not);
+    the cohort to run and what was cut."""
     from cuking_tpu_torch.ops.bitset import PlaneLayout
+    from cuking_tpu_torch.parallel.submatrix import Submatrix
+    from cuking_tpu_torch.utils.hbm import engine_plane_bytes
     from tools.torch_shard_at_scale import host_available_bytes
 
     notes = []
     entries = cohort.written_sites * cohort.samples * 0.95
     free = shutil.disk_usage(workdir).free
-    notes.append(f"input ~{entries:.3e} entries, {4 * entries / 1e9:.1f}-"
-                 f"{9 * entries / 1e9:.1f} GB at 4-9 B an entry; {free / 1e9:.1f} GB free")
-    if 9 * entries > 0.9 * free:
-        files = max(1, int(0.9 * free / (9 * entries / cohort.files)))
+    notes.append(f"input ~{entries:.3e} entries, ~{INPUT_BYTES_PER_ENTRY * entries / 1e9:.1f} GB "
+                 f"at {INPUT_BYTES_PER_ENTRY} B an entry; {free / 1e9:.1f} GB free")
+    if INPUT_BYTES_PER_ENTRY * entries > 0.9 * free:
+        files = max(1, int(0.9 * free / (INPUT_BYTES_PER_ENTRY * entries / cohort.files)))
         notes.append(f"the disk holds {files} of {cohort.files} files: cut to {files}")
-        cohort = Cohort(cohort.samples, cohort.sites, files, cohort.sites_per_file, cohort.seed)
+        cohort = dataclasses.replace(cohort, files=files)
     words = PlaneLayout.create(cohort.sites).words
-    row_bytes = 8 * words
+
+    def planes(samples: int) -> int:
+        sm = Submatrix.create(samples, cohort.split_factor, cohort.shard_index)
+        return engine_plane_bytes(sm, words, PANEL)
+
     avail = host_available_bytes()
-    fit = (avail - (8 << 30)) // row_bytes // PANEL * PANEL
-    notes.append(f"planes {-(-cohort.samples // PANEL) * PANEL * row_bytes / 1e9:.2f} GB; "
-                 f"{avail / 1e9:.1f} GB of host memory available")
-    if fit < -(-cohort.samples // PANEL) * PANEL:
-        notes.append(f"the host holds {fit} samples' planes: cut from {cohort.samples}")
-        cohort = Cohort(fit, cohort.sites, cohort.files, cohort.sites_per_file, cohort.seed)
+    notes.append(f"planes {planes(cohort.samples) / 1e9:.2f} GB; {avail / 1e9:.1f} GB of host "
+                 f"memory available, {HOST_RESERVE_BYTES / 2**30:.0f} GiB kept beside them")
+    if planes(cohort.samples) + HOST_RESERVE_BYTES > avail:
+        lo, hi = cohort.split_factor, cohort.samples  # the shard fits at lo
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (mid, hi) if planes(mid) + HOST_RESERVE_BYTES <= avail else (lo, mid)
+        notes.append(f"the host holds the shard's planes of {lo:,} samples: cut from "
+                     f"{cohort.samples:,}")
+        cohort = dataclasses.replace(cohort, samples=lo)
     return cohort, notes
 
 
@@ -834,6 +1074,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--files", type=int, default=FILES)
     ap.add_argument("--sites-per-file", type=int, default=None,
                     help="default: ~9.45M cells a file (63 sites at 150,000 samples)")
+    ap.add_argument("--split-factor", type=int, default=1,
+                    help="the task's --split_factor (default 1: the whole cohort)")
+    ap.add_argument("--shard-index", type=int, default=0,
+                    help="the task's --shard_index (default 0)")
     ap.add_argument("--ingest-runs", type=int, default=3,
                     help="whole-input ingest runs as the package has it (0: the task alone)")
     ap.add_argument("--ab-runs", type=int, default=2,
@@ -848,6 +1092,9 @@ def main(argv: list[str] | None = None) -> int:
 
     from cuking_tpu_torch.utils.card import card_name
 
+    cohort = cohort_for(args.samples, args.sites, args.files, args.sites_per_file,
+                        split_factor=args.split_factor, shard_index=args.shard_index)
+    cohort.submatrix  # an invalid split or shard fails here, before any work
     if args.device.startswith("cuda"):
         if not torch.cuda.is_available():
             print("torch_cli_at_scale: no CUDA device; pass --device cpu to run the "
@@ -860,8 +1107,7 @@ def main(argv: list[str] | None = None) -> int:
           f"{len(os.sched_getaffinity(0))} usable of {os.cpu_count()}", flush=True)
     workdir = tempfile.mkdtemp(prefix="cli_at_scale_", dir=args.workdir)
     try:
-        cohort, notes = reckon(cohort_for(args.samples, args.sites, args.files,
-                                          args.sites_per_file), workdir)
+        cohort, notes = reckon(cohort, workdir)
         for note in notes:
             print(f"reckoned: {note}", flush=True)
         result = run_cell(cohort, workdir, device=args.device, ingest_runs=args.ingest_runs,
