@@ -14,7 +14,8 @@ ring positions (default: every visible CUDA device).  ``--distributed``
 starts ``torch.distributed`` from the ``torchrun`` environment
 (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``): NCCL for CUDA
 positions, gloo for CPU ones.  ``--profile_dir`` writes a ``torch.profiler``
-Chrome trace of the sweep, one file per output partition.  The TPU package's
+Chrome trace of the task, from metadata to write, with the port's spans
+(``utils/stopwatch.py``), one file per output partition.  The TPU package's
 ``--tile_i/--tile_j`` and ``--[no-]indexed_panels`` have no counterpart and
 are rejected: the first set the Pallas kernel's Mosaic tile edges, and the
 CUDA kernel's tiles are fixed by its ``wgmma`` shape; the second chooses
@@ -34,7 +35,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
-import shutil
 import sys
 from datetime import timedelta
 
@@ -72,7 +72,14 @@ from cuking_tpu_torch.utils.status import (
     FailedPreconditionError,
     InvalidArgumentError,
 )
-from cuking_tpu_torch.utils.stopwatch import StageLogger
+from cuking_tpu_torch.utils.stopwatch import (
+    StageLogger,
+    chrome_events,
+    now_ns,
+    recorded,
+    span,
+)
+from cuking_tpu_torch.utils.trace import append_events
 
 # How long a rank waits for its peers at the env:// rendezvous, and for a
 # collective or a ring rotation afterwards (long: ranks reach the first
@@ -152,8 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
         "Exit successfully without recomputing when this shard's output "
         "partition already exists (idempotent fan-out restarts)"))
     p.add_argument("--profile_dir", default="", help=(
-        "If set, write a torch.profiler Chrome trace of the sweep (CPU, and "
-        "CUDA on a CUDA device) into this directory (local or gs://) as "
+        "If set, write a torch.profiler Chrome trace of the task, from "
+        "metadata to write, with its named spans (CPU, and CUDA on a CUDA "
+        "device) into this directory (local or gs://) as "
         "trace-part-NNNNN.json, named after this run's output partition so "
         "that the tasks of a fan-out can share one directory (open it in "
         "Perfetto or chrome://tracing)"))
@@ -337,7 +345,11 @@ def _check_mesh_fit(args, mesh: RingMesh, metadata, layout, submatrix, panel) ->
 @contextlib.contextmanager
 def _profiling(args, storage: Storage, devices: list[str], shard_index: int, logger):
     """With ``--profile_dir``, profiles the body and writes its Chrome trace
-    through ``storage`` (so a gs:// directory works); otherwise a no-op."""
+    through ``storage`` (so a gs:// directory works); otherwise a no-op.
+    Every span the body recorded is added as a complete event
+    (``utils/stopwatch.chrome_events``), with its ids and counts: the
+    profiler keeps those of its own thread as annotations without them, and
+    drops those of other threads (ingest's)."""
     if not args.profile_dir:
         yield
         return
@@ -350,7 +362,9 @@ def _profiling(args, storage: Storage, devices: list[str], shard_index: int, log
     if torch.device(devices[0]).type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
+        since = now_ns()
         yield
+    spans = [s for s in recorded() if s.start_ns >= since]
     # Named after the output partition: part-00003.snappy.parquet →
     # trace-part-00003.json.
     stem = partition_name(shard_index).split(".")[0]
@@ -359,8 +373,9 @@ def _profiling(args, storage: Storage, devices: list[str], shard_index: int, log
     with tempfile.TemporaryDirectory() as tmp:
         local = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(local)
-        with open(local, "rb") as src, storage.open_write(uri) as dst:
-            shutil.copyfileobj(src, dst)
+        with storage.open_write(uri) as dst:
+            append_events(local, dst,
+                          lambda base: chrome_events(spans, base, os.getpid()))
     logger.print(f"Wrote profiler trace {uri}.")
 
 
@@ -420,9 +435,18 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
             logger.print(f"Output {part_uri} already exists; skipping.")
             return
 
-    logger.begin("Reading metadata...")
+    with (_profiling(args, storage, devices, shard_index, logger),
+          span("cli.task", shard_index=shard_index)):
+        _run_stages(args, storage, shard_index, devices, mesh, logger)
+
+
+def _run_stages(args, storage: Storage, shard_index: int, devices: list[str],
+                mesh: RingMesh | None, logger) -> None:
+    """The task's stages, from metadata to write, each a ``stage.<key>``
+    span under the task's ``cli.task``."""
+    logger.begin("Reading metadata...", "metadata")
     metadata = read_metadata(storage, args.input_uri)
-    logger.end("metadata")
+    logger.end()
 
     submatrix = Submatrix.create(
         metadata.num_samples, args.split_factor, args.shard_index
@@ -453,7 +477,7 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
         check_engine_fit(
             metadata.num_samples, layout.words, submatrix, config, args.split_factor
         )
-    logger.begin("Allocating bit planes...")
+    logger.begin("Allocating bit planes...", "allocate")
     if args.distributed:
         # Host-sharded storage: this rank holds only its own positions'
         # sample row blocks (no full-cohort bitset per rank).
@@ -462,18 +486,18 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
         )
     else:
         panel_storage = PanelStorage(layout, submatrix, config.panel)
-    logger.end("allocate")
+    logger.end()
     mib = panel_storage.planes.nbytes >> 20
     logger.print(f"Allocated {mib} MiB of memory for bit planes.")
 
-    logger.begin("Listing input files...")
+    logger.begin("Listing input files...", "listing")
     input_files = storage.list_parquet_files(args.input_uri)
-    logger.end("listing")
+    logger.end()
     if not input_files:
         raise FailedPreconditionError("No input files found")
     logger.print(f"Found {len(input_files)} input files.")
 
-    logger.begin("Processing Parquet tables...")
+    logger.begin("Processing Parquet tables...", "ingest")
     ingest_parquet(
         storage,
         input_files,
@@ -481,22 +505,21 @@ def _run_pipeline(args, devices: list[str], mesh: RingMesh | None, logger) -> No
         num_reader_threads=args.num_reader_threads,
         logger=logger,
     )
-    logger.end("ingest")
+    logger.end()
 
-    with _profiling(args, storage, devices, shard_index, logger):
-        if mesh is not None:
-            logger.begin("Running mesh ring sweep...")
-            results = _run_mesh_sweep(args, panel_storage, config, mesh, logger)
-            logger.end("king_kernel")
-        else:
-            engine = KingEngine(panel_storage, config, logger=logger)
-            results = engine.run()
+    if mesh is not None:
+        logger.begin("Running mesh ring sweep...", "king_kernel")
+        results = _run_mesh_sweep(args, panel_storage, config, mesh, logger)
+        logger.end()
+    else:
+        engine = KingEngine(panel_storage, config, logger=logger)
+        results = engine.run()
 
-    logger.begin(f"Writing {len(results)} results...")
+    logger.begin(f"Writing {len(results)} results...", "write")
     uri = write_results(
         storage, args.output_uri, results, metadata.samples, shard_index
     )
-    logger.end("write")
+    logger.end()
     logger.print(f"Wrote {uri}.")
 
 

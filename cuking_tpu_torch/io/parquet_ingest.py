@@ -21,6 +21,12 @@ lock-free atomic C++ packer (native/packer.cpp) when built.
 Schema contract (enforced like cuking.cu:585-671): exactly 3 columns, by
 position: row_idx INT64 (site), col_idx INT64 (sample), n_alt_alleles INT32.
 Column NAMES are not checked, matching the reference.
+
+Spans (``utils/stopwatch.py``): per file ``ingest.read`` (the whole read,
+``bytes``) on a reader thread, and ``ingest.decode`` (``entries``),
+``ingest.filter`` (``kept``) and ``ingest.scatter`` on a decode thread,
+each under the span open where ``ingest_parquet`` was called (the CLI's
+``stage.ingest``), and recorded when that one is.
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from cuking_tpu_torch.io.uri import Storage
 from cuking_tpu_torch.native.packer import usable_cpus
 from cuking_tpu_torch.ops import bitset
 from cuking_tpu_torch.utils.status import FailedPreconditionError
-from cuking_tpu_torch.utils.stopwatch import StageLogger
+from cuking_tpu_torch.utils.stopwatch import StageLogger, current, span
 
 
 def _decode_file(buf: bytes, source: str):
@@ -87,6 +93,7 @@ def ingest_parquet(
     single-error propagation (cuking.cu:415-433).
     """
     logger = logger or StageLogger(enabled=False)
+    stage = current()  # the workers' spans' parent, and whether they record
     planes = panel_storage.planes
     layout = panel_storage.layout
 
@@ -105,29 +112,34 @@ def ingest_parquet(
     progress = {"count": 0}
 
     def decode_and_scatter(path: str, buf: bytes) -> None:
-        row_idx, col_idx, n_alt = _decode_file(buf, path)
-        # Skip samples not stored here — outside this shard's Submatrix or,
-        # for host-sharded storage, on another host (cuking.cu:676-678).
-        keep = panel_storage.contains(col_idx)
-        row_idx, col_idx, n_alt = row_idx[keep], col_idx[keep], n_alt[keep]
-        offsets = panel_storage.storage_offsets(col_idx)
-        if native is not None:
-            # Lock-free: relaxed atomic AND per word, safe under concurrent
-            # writers exactly like the reference's AtomicClearBit
-            # (cuking.cu:316-323).
-            native.clear_bits(planes, layout, offsets, row_idx, n_alt, source=path,
-                              num_threads=packer_threads)
-        else:
-            # The sort/segment mask computation runs on thread-local arrays
-            # and needs no lock; only the O(words-touched) in-place scatter
-            # mutates the shared planes.  Keeping the critical section that
-            # small stops decode threads convoying on one lock (the r3
-            # numpy path was 5.6× slower than native largely from this).
-            prepared = bitset.prepare_clear_masks(
-                layout, offsets, row_idx, n_alt, source=path
-            )
-            with scatter_lock:
-                bitset.apply_clear_masks(planes, prepared)
+        with span("ingest.decode", stage) as decode:
+            row_idx, col_idx, n_alt = _decode_file(buf, path)
+            decode.count(entries=len(n_alt))
+        with span("ingest.filter", stage) as filtered:
+            # Skip samples not stored here — outside this shard's Submatrix or,
+            # for host-sharded storage, on another host (cuking.cu:676-678).
+            keep = panel_storage.contains(col_idx)
+            row_idx, col_idx, n_alt = row_idx[keep], col_idx[keep], n_alt[keep]
+            offsets = panel_storage.storage_offsets(col_idx)
+            filtered.count(kept=len(n_alt))
+        with span("ingest.scatter", stage):
+            if native is not None:
+                # Lock-free: relaxed atomic AND per word, safe under concurrent
+                # writers exactly like the reference's AtomicClearBit
+                # (cuking.cu:316-323).
+                native.clear_bits(planes, layout, offsets, row_idx, n_alt, source=path,
+                                  num_threads=packer_threads)
+            else:
+                # The sort/segment mask computation runs on thread-local arrays
+                # and needs no lock; only the O(words-touched) in-place scatter
+                # mutates the shared planes.  Keeping the critical section that
+                # small stops decode threads convoying on one lock (the r3
+                # numpy path was 5.6× slower than native largely from this).
+                prepared = bitset.prepare_clear_masks(
+                    layout, offsets, row_idx, n_alt, source=path
+                )
+                with scatter_lock:
+                    bitset.apply_clear_masks(planes, prepared)
         with scatter_lock:
             progress["count"] += 1
             if progress["count"] % 1024 == 0:
@@ -154,7 +166,9 @@ def ingest_parquet(
         def read_task(path: str):
             in_flight.acquire()
             try:
-                buf = storage.read_bytes(path)
+                with span("ingest.read", stage) as read:
+                    buf = storage.read_bytes(path)
+                    read.count(bytes=len(buf))
             except BaseException:
                 in_flight.release()
                 raise

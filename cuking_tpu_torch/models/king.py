@@ -28,6 +28,13 @@ packed planes for one shard, in PyTorch.
   sorts by (i, j, kin) (cuking.cu:761-765), which also undoes the atomic
   slot order.
 
+Spans (``utils/stopwatch.py``, recorded while a ``torch.profiler`` records):
+``engine.run`` around ``run()``; inside it ``engine.upload`` (when
+``planes_dev`` uploads; ``bytes``), ``engine.schedule`` (``steps``),
+``engine.steps`` (the step loop, first launch to last; ``steps``), an
+``engine.limit_wait`` per wait for a count copy, ``engine.count_read``
+(``total``), ``engine.fetch`` (``rows``) and ``engine.sort``.
+
 Kernels (``KingConfig.kernel``): ``cuda`` (the hand-written count kernel,
 ops/king_cuda.py), ``matmul`` (the plain PyTorch int8 product,
 ops/king_mm.py), ``popcount`` (the plain AND + popcount path,
@@ -54,7 +61,7 @@ from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 from cuking_tpu_torch.ops.king_popcount import panel_counts_popcount
 from cuking_tpu_torch.parallel.submatrix import Submatrix
 from cuking_tpu_torch.utils.status import InvalidArgumentError, ResourceExhaustedError
-from cuking_tpu_torch.utils.stopwatch import StageLogger
+from cuking_tpu_torch.utils.stopwatch import StageLogger, span
 
 DEFAULT_KIN_THRESHOLD = 0.0884  # 2nd degree or closer (cuking.cu:43-45)
 DEFAULT_MAX_RESULTS = 10 << 20  # cuking.cu:40-41
@@ -270,7 +277,8 @@ class KingEngine:
         if self._planes_dev_cache is None or self._planes_dev_version != version:
             self._planes_dev_cache = None  # free the old copy before uploading
             host = torch.from_numpy(self.storage.planes.view(np.int32))
-            self._planes_dev_cache = host.to(self.device)
+            with span("engine.upload", bytes=host.nbytes):
+                self._planes_dev_cache = host.to(self.device)
             self._planes_dev_version = version
         return self._planes_dev_cache
 
@@ -329,34 +337,44 @@ class KingEngine:
     def run(self) -> ResultSet:
         """Sweeps all (i-panel, j-panel) pairs of the shard and returns the
         thresholded, sorted results."""
-        cfg = self.config
-        st = self.storage
-        capacity = cfg.resolved_result_capacity()
-        while True:
-            self.logger.begin(
-                f"Running KING kernel for {st.nr} x {st.nc} matrix"
-                f" ({len(self._panel_pair_params())} panel-pair steps)..."
-            )
-            hits = self.sweep(capacity)
-            total = int(hits.count)  # the sweep's one read of the device
-            self.logger.end("king_kernel")
-            _check_max_results(total, cfg.max_results)
-            if total <= capacity:
-                break
-            # Exact total in (capacity, max_results]: re-run once at the
-            # next pow2 bucket, as the JAX engine does.
-            new_capacity = min(ceil_pow2(total), cfg.max_results)
-            self.logger.print(
-                f"Result buffer overflowed ({total} hits > {capacity} "
-                f"slots); re-running at capacity {new_capacity}."
-            )
-            capacity = new_capacity
-            del hits  # free the full buffer before the next one is made
+        with span("engine.run") as run_span:
+            cfg = self.config
+            st = self.storage
+            capacity = cfg.resolved_result_capacity()
+            sweeps = 0
+            while True:
+                self.logger.begin(
+                    f"Running KING kernel for {st.nr} x {st.nc} matrix"
+                    f" ({len(self._panel_pair_params())} panel-pair steps)...",
+                    "king_kernel",
+                )
+                hits = self.sweep(capacity)
+                sweeps += 1
+                run_span.count(sweeps=sweeps)
+                with span("engine.count_read") as read:
+                    total = int(hits.count)  # the sweep's one read of the device
+                    read.count(total=total)
+                self.logger.end()
+                _check_max_results(total, cfg.max_results)
+                if total <= capacity:
+                    break
+                # Exact total in (capacity, max_results]: re-run once at the
+                # next pow2 bucket, as the JAX engine does.
+                new_capacity = min(ceil_pow2(total), cfg.max_results)
+                self.logger.print(
+                    f"Result buffer overflowed ({total} hits > {capacity} "
+                    f"slots); re-running at capacity {new_capacity}."
+                )
+                capacity = new_capacity
+                del hits  # free the full buffer before the next one is made
 
-        self.logger.print(f"Processing {total} results...")
-        if total == 0:
-            return ResultSet.concat_and_sort([])
-        return ResultSet.concat_and_sort([ResultSet.from_rows(hits.rows(total))])
+            self.logger.print(f"Processing {total} results...")
+            parts = []
+            if total:
+                with span("engine.fetch", rows=total):
+                    parts.append(ResultSet.from_rows(hits.rows(total)))
+            with span("engine.sort"):
+                return ResultSet.concat_and_sort(parts)
 
     def sweep(self, capacity: int) -> HitBuffer:
         """Runs every panel-pair step into a fresh :class:`HitBuffer` of
@@ -369,17 +387,24 @@ class KingEngine:
         cfg = self.config
         planes = self.planes_dev
         hits = HitBuffer(capacity, self.device)
-        params = self._panel_pair_params().tolist()
-        for step, (i_off, j_off, gi_base, gj_base, ni, nj) in enumerate(params, 1):
-            # A diagonal panel pair (same global base) lets the CUDA kernel
-            # skip lower-triangle tiles; the strict i<j mask never reads them.
-            counts = self._counts(planes, i_off, j_off, gi_base == gj_base)
-            emit_hits(counts, hits, gi_base, gj_base, gi_base + ni, gj_base + nj,
-                      cfg.kin_threshold, strict=True, sym=False)
-            if step % LIMIT_CHECK_STEPS == 0:
-                hits.snapshot()
-                if hits.pending > LIMIT_CHECK_WINDOW:
-                    _check_max_results(hits.wait_oldest(), cfg.max_results)
+        with span("engine.schedule") as schedule:
+            params = self._panel_pair_params().tolist()
+            schedule.count(steps=len(params))
+        # The loop's spans take the tracing decision from this one: no
+        # per-step span, and no flag read inside the loop.
+        with span("engine.steps", steps=len(params)) as steps:
+            for step, (i_off, j_off, gi_base, gj_base, ni, nj) in enumerate(params, 1):
+                # A diagonal panel pair (same global base) lets the CUDA kernel
+                # skip lower-triangle tiles; the strict i<j mask never reads them.
+                counts = self._counts(planes, i_off, j_off, gi_base == gj_base)
+                emit_hits(counts, hits, gi_base, gj_base, gi_base + ni, gj_base + nj,
+                          cfg.kin_threshold, strict=True, sym=False)
+                if step % LIMIT_CHECK_STEPS == 0:
+                    hits.snapshot()
+                    if hits.pending > LIMIT_CHECK_WINDOW:
+                        with span("engine.limit_wait", steps):
+                            count = hits.wait_oldest()
+                        _check_max_results(count, cfg.max_results)
         return hits
 
 

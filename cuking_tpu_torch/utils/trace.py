@@ -19,7 +19,9 @@ no device events, and reads as zero device time.
 
 Times in a trace are microseconds; every ``*_ms`` value here is in
 milliseconds.  Reading needs only ``json``; :func:`traced` imports
-``torch.profiler`` when it is called.
+``torch.profiler`` when it is called.  :func:`append_events` adds events
+to a trace file as it copies it (the CLI's ``--profile_dir`` adds the
+port's spans so).
 """
 
 from __future__ import annotations
@@ -105,6 +107,60 @@ def read(path: str) -> tuple[list[DeviceEvent], dict, tuple[float, float] | None
     cards = {int(p["id"]): p.get("name", "?") for p in trace.get("deviceProperties", [])
              if "id" in p}
     return sorted(events, key=lambda e: e.start), cards, window
+
+
+# How much of a trace's head and of its tail append_events reads.
+_EDGE_BYTES = 1 << 16
+
+
+def append_events(path: str, dst, events_at) -> None:
+    """Copies the Chrome trace at ``path`` to the binary stream ``dst`` with
+    the events ``events_at(base_ns)`` added at the end of its
+    ``traceEvents``, ``base_ns`` being the trace's ``baseTimeNanoseconds``.
+    The trace is copied as a stream and never parsed whole: only its head
+    and its tail are read apart.  A trace without ``baseTimeNanoseconds``,
+    or whose ``traceEvents`` does not end in its tail, raises ValueError."""
+    size = os.path.getsize(path)
+    with open(path, "rb") as src:
+        head = src.read(_EDGE_BYTES)
+        tail_at = max(0, size - _EDGE_BYTES)
+        src.seek(tail_at)
+        tail = src.read()
+        base = (re.search(rb'"baseTimeNanoseconds"\s*:\s*(\d+)', head)
+                or re.search(rb'"baseTimeNanoseconds"\s*:\s*(\d+)', tail))
+        if base is None:
+            raise ValueError(f"{path}: the trace has no baseTimeNanoseconds")
+        close = _events_end(tail)
+        if close is None:
+            raise ValueError(f"{path}: no end of traceEvents in the trace's tail")
+        src.seek(0)
+        left = tail_at + close
+        while left:
+            chunk = src.read(min(left, _EDGE_BYTES))
+            dst.write(chunk)
+            left -= len(chunk)
+    events = events_at(int(base.group(1)))
+    if events:
+        sep = b"" if tail[:close].rstrip().endswith(b"[") else b","
+        dst.write(sep + b",\n".join(json.dumps(e).encode() for e in events) + b"\n")
+    dst.write(tail[close:])
+
+
+def _events_end(tail: bytes) -> int | None:
+    """The offset in ``tail`` of the ``]`` that closes ``traceEvents``: the
+    last one after which the trace's object ends, or goes on with keys."""
+    at = len(tail)
+    while (at := tail.rfind(b"]", 0, at)) >= 0:
+        rest = tail[at + 1:].strip()
+        if rest == b"}":
+            return at
+        if rest[:1] == b",":
+            try:
+                if isinstance(json.loads(b"{" + rest[1:]), dict):
+                    return at
+            except ValueError:
+                pass
+    return None
 
 
 def _merged(intervals) -> list:

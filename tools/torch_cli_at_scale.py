@@ -613,6 +613,8 @@ AB_SETTINGS = ("packer threads", "packer 1 thread", "arrow serial",
 AB_FILES = 48
 
 
+# The port's ingest.* spans time the same phases, but record only under a
+# profiler, whose cost this tool's A/B would then carry.
 class IngestSplit:
     """Wraps, for one ingest, the functions of its stages (read, decode,
     filter, scatter) to sum their seconds over the workers, records the
