@@ -23,9 +23,15 @@ Phases (any failure exits nonzero):
    ``planes_j``), an asymmetric ``panel_j``, a ``tri`` diagonal pair,
    W = 100 with partial tiles, the sliced entry, rows that are all missing,
    all het, all hom-ref, all hom-alt or have the sign bit set (at 100,000
-   sites and at W = 4), and 256 x 256 at 1,000,000 sites.  Then CUDA-event
-   times at the engine's shape (1024 x 1024 pairs, off the diagonal and
-   ``tri``) at 100,000 and at 1,000,000 sites: the kernel, the AND +
+   sites and at W = 4, a single stage in the kernel's 8-stage ring, also
+   ``tri``), and 256 x 256 at 1,000,000 sites; and the edges of the
+   kernel's pipeline: a step of more tiles than SMs (1024 x 2048), a
+   1000 x 1000 ``tri`` pair on the diagonal (neither side a multiple of the
+   128 x 64 tile), the UK Biobank step (2,924 words, off the diagonal and
+   ``tri``) and panels whose last rows are the storage's last (the tile
+   reads past the storage's end).  Then CUDA-event times at the engine's
+   shape (1024 x 1024 pairs, off the diagonal and ``tri``) at 100,000 sites,
+   at 2,924 words (93,511 sites) and at 1,000,000 sites: the kernel, the AND +
    popcount kernel (``prev_ms``), one ``torch._int_mm`` of the stacked
    9-block indicators (``library_ms``), the two ``torch._int_mm`` calls of
    the five products, the kernel's own operations (``library_five_ms``),
@@ -432,12 +438,15 @@ def phase_kernel(card: str) -> dict:
     edge_np = edge_planes(320, layout, rng)
     w4_layout = PlaneLayout.create(128)  # W = 4: one staged slice per row
     w4_np = edge_planes(300, w4_layout, rng)
+    ukb_layout = PlaneLayout.create(93_511)  # W = 2,924: the UK Biobank step
+    ukb_np = edge_planes(2048, ukb_layout, rng)
     long_layout = PlaneLayout.create(1_000_000)  # W = 31,252
     long_np = random_planes(512, long_layout, rng)
     stores = {name: (on_card(p), p, lay) for name, p, lay in (
         ("store", store_np, layout), ("pj", pj_np, layout),
         ("small", small_np, small_layout), ("edge", edge_np, layout),
-        ("w4", w4_np, w4_layout), ("long", long_np, long_layout))}
+        ("w4", w4_np, w4_layout), ("long", long_np, long_layout),
+        ("ukb", ukb_np, ukb_layout))}
 
     # name, i storage, i_off, ni, j storage, j_off, nj, tri, sliced entry,
     # rows of the case that the oracle sample must include
@@ -455,8 +464,20 @@ def phase_kernel(card: str) -> dict:
          "100,000 sites", "edge", 0, 320, "edge", 0, 320, 0, False, range(6)),
         ("W=4 (128 sites) with the edge rows, 300x300",
          "w4", 0, 300, "w4", 0, 300, 0, False, range(6)),
+        ("W=4 (one stage, the ring deeper than the words), tri=1, 300x300",
+         "w4", 0, 300, "w4", 0, 300, 1, False, range(6)),
         ("256x256 at 1,000,000 sites (W=31,252)",
          "long", 0, 256, "long", 256, 256, 0, False, ()),
+        ("more tiles than SMs: 1024x2048 (256 CTAs on 132 SMs)",
+         "store", 0, 1024, "store", 1024, 2048, 0, False, ()),
+        ("1000x1000 tri=1 on the diagonal, neither side a tile multiple",
+         "store", 2000, 1000, "store", 2000, 1000, 1, False, ()),
+        ("UK Biobank step: 2,924 words, 1024x1024 with the edge rows",
+         "ukb", 0, 1024, "ukb", 1024, 1024, 0, False, range(6)),
+        ("UK Biobank step: 2,924 words, 1024x1024 tri=1 with the edge rows",
+         "ukb", 0, 1024, "ukb", 0, 1024, 1, False, range(6)),
+        ("last rows at the storage's end: i 3096+1000, j 3396+700 of 4096 rows",
+         "store", 3096, 1000, "store", 3396, 700, 0, False, ()),
     ]
     max_err = 0
     for name, si, i_off, ni, sj, j_off, nj, tri, sliced, edge_rows in cases:
@@ -521,7 +542,7 @@ def phase_kernel(card: str) -> dict:
         torch.cuda.empty_cache()
         return t
 
-    store = stores["store"][0]
+    store, ukb_store = stores["store"][0], stores["ukb"][0]
     del stores
     torch.cuda.empty_cache()
     t100k = timings(store, layout.words, 20)
@@ -532,6 +553,14 @@ def phase_kernel(card: str) -> dict:
         f"{t100k['library_five_ms']:.3f} ms, plain version "
         f"{t100k['plain_ms']:.3f} ms, bound {t100k['bound_ms']:.3f} ms ({card})")
     del store
+    tukb = timings(ukb_store, ukb_layout.words, 20)
+    del ukb_store
+    torch.cuda.empty_cache()
+    say(f"phase 2: 1024x1024 pairs x {ukb_layout.words} words: kernel {tukb['ms']:.3f} ms "
+        f"(again {tukb['ms_repeat']:.3f}, tri {tukb['tri_ms']:.3f}), AND+popc "
+        f"{tukb['prev_ms']:.3f} ms, torch._int_mm 9-block {tukb['library_ms']:.3f} ms, five "
+        f"products {tukb['library_five_ms']:.3f} ms, plain version {tukb['plain_ms']:.3f} ms, "
+        f"bound {tukb['bound_ms']:.3f} ms ({card})")
     long_rows = on_card(random_planes(2048, long_layout, rng))
     t1m = timings(long_rows, long_layout.words, 6)
     del long_rows
@@ -541,7 +570,7 @@ def phase_kernel(card: str) -> dict:
         f"{t1m['prev_ms']:.3f} ms, torch._int_mm 9-block "
         f"{t1m['library_ms']:.3f} ms, five products {t1m['library_five_ms']:.3f} ms, plain version {t1m['plain_ms']:.3f} ms, bound "
         f"{t1m['bound_ms']:.3f} ms ({card})")
-    return {"max_abs_err": max_err, **t100k, "at_1m_sites": t1m}
+    return {"max_abs_err": max_err, **t100k, "at_2924_words": tukb, "at_1m_sites": t1m}
 
 
 def _sorted_rows(rows: np.ndarray) -> np.ndarray:

@@ -1,11 +1,14 @@
 // KING counters for one (i-panel, j-panel) pair on Hopper (sm_90a): an int8
-// tensor-core (wgmma) kernel that unpacks the packed het/hom words on chip.
+// tensor-core (wgmma) kernel that unpacks the packed het/hom words on chip,
+// with its warpgroups specialised: one loads and unpacks, two multiply.
 //
 // Replaces: cuking_tpu/ops/king_pallas.py `_king_body`, reached through
 // `panel_counts_pallas` (sliced panels) and `_panel_counts_pallas_indexed`
 // (row offsets into the full storage).  Both entries of the port
 // (cuking_tpu_torch/ops/king_cuda.py) call `king_counts_launch` with a base
-// pointer and a row offset per side.
+// pointer and a row offset per side.  Its earlier body, in which all eight
+// warps loaded, unpacked B, built A and issued the products in turn around a
+// CTA barrier every four words, ran at ~49% of the bound below.
 //
 // What it computes.  Planes are [2, rows, W] 32-bit words (plane 0 = het,
 // plane 1 = hom; (1,1) = missing).  Per site, with het bit e and hom bit o:
@@ -24,9 +27,12 @@
 // What bounds it.  At the engine's shape (1024 x 1024 pairs x 100,096 sites)
 // the five products are 1.05e12 int8 operations: 0.530 ms at the card's
 // 1,979 dense int8 TOP/s.  The bytes are no limit: 51 MB of planes in and
-// 25 MB of counters out take 0.023 ms at 3.35 TB/s.  So tensor-core
-// operations bound it, and the design keeps the rest (the unpack, the
-// loads, the barriers) off the tensor cores' way:
+// 25 MB of counters out take 0.023 ms at 3.35 TB/s.  So the tensor cores
+// bound it: a CTA's 128 x 64 x 5 products of one word are 320 of their
+// clocks.  Beside them run the unpack (integer work, about half as many
+// clocks of the integer pipe), the loads, and shared memory's traffic, of
+// which the tensor cores' own reads of B take half at their full rate.  The
+// design keeps all of that off the warps that issue the products:
 //
 // * The unpacked indicators never touch device memory.  A k32 step is one
 //   32-bit word.  K bytes 4c..4c+3 of a word come from bits c, c+8, c+16,
@@ -34,23 +40,39 @@
 //   one indicator register is `(word >> c) & 0x01010101`, and
 //   u = v + R * 0xFE is 1 for hom-alt and 0xFF for hom-ref with no byte
 //   carries: six integer operations give the H, v and u registers of one c.
-// * A (the i side) is built in registers: in the k32 s8 fragment, thread t
-//   of a quad holds K bytes 4t..4t+3 and 16+4t..16+4t+3, i.e. c = t and
-//   c = t + 4 of rows g and g + 8.  B (the j side) is unpacked once per CTA
-//   into shared memory as K-major core matrices (8 rows x 16 bytes, no
-//   swizzle): [word][H, v, u][8-row block][K half][row].
-// * A CTA is two warpgroups over a 128 x 64 pair tile (64 i-rows each), so
-//   a 1024 x 1024 launch is 128 CTAs: one wave on 132 SMs at one CTA per
-//   SM.  Per word a warpgroup issues m64n128k32 of H_i against [H_j; v_j]
-//   (HH | Hv), the same for v_i (vH | vv) and m64n64k32 of u_i against u_j:
-//   160 accumulator registers per thread.
-// * Packed words arrive through a 4-stage `cp.async` ring of 4-word
-//   (16-byte) row slices, so W need only be a multiple of 4 and no K tail
-//   exists; rows past the panel read a valid row and their pairs are never
-//   stored.  Each stage is issued as two wgmma groups of two words with their
-//   own A registers, so one group is always queued while the threads build
-//   the next group's A and unpack the next stage's B (triple-buffered), with
-//   one CTA barrier per stage.
+// * A CTA owns a 128 x 64 pair tile, so a 1024 x 1024 step is 128 CTAs: one
+//   wave on 132 SMs at one CTA per SM.  Taller tiles would leave more SMs
+//   idle (192 rows: 96 CTAs, 73% of the SMs); a wider one would need more
+//   than the 160 accumulators a thread holds for 64 columns.  Its 384
+//   threads are three warpgroups:
+// * The producer warpgroup (24 registers after `setmaxnreg.dec`).  One of
+//   its threads keeps an 8-stage ring of packed 4-word row slices loading as
+//   two tensor-map boxes a stage (the maps are encoded on the host once per
+//   storage and kept), each completing on its stage's mbarrier; W need only
+//   be a multiple of 4, so no K tail exists, and the stage 4 ahead is loaded
+//   once a stage is unpacked.  All 128 unpack B (the j rows) into a 4-stage
+//   ring of K-major core matrices (8 rows x 16 bytes, no swizzle:
+//   [word][H, v, u][8-row block][K half][row]), lane l taking word l / 8 of
+//   its rows so that a warp's reads hit 32 banks and its stores fill whole
+//   128-byte runs, and hand each stage over on a "B full" mbarrier.
+// * Two consumer warpgroups (240 registers after `setmaxnreg.inc`) own 64
+//   i-rows each and do nothing but build A and issue.  A stays in registers
+//   (wgmma's RS form): in the k32 s8 fragment, thread t of a quad holds K
+//   bytes 4t..4t+3 and 16+4t..16+4t+3, i.e. c = t and c = t + 4 of rows g
+//   and g + 8, built from the packed words (one 8-byte read per row, plane
+//   and two words).  Through shared memory A would add ~6 KB of reads a word
+//   per warpgroup to B's 64 B a clock and the unpack's writes, near shared
+//   memory's 128 B a clock at the tensor cores' full rate.  Per word a
+//   warpgroup issues one group: m64n128k32 of H_i against [H_j; v_j]
+//   (HH | Hv), the same for v_i (vH | vv) and m64n64k32 of u_i against u_j.
+//   Three register sets of A keep two groups in flight while the next word's
+//   A is built; with fewer than 240 registers ptxas serialises the groups.
+// * No CTA barrier inside the K loop.  Every hand-over is an mbarrier with
+//   phase bits: "packed full" (the boxes landed), "packed empty" (every warp
+//   has read the stage), "B full" (the unpack, behind a proxy fence) and
+//   "B empty" (the groups that read the stage have retired).
+// * The epilogue writes two neighbouring pairs' counters as one 8-byte store
+//   (when nj is even), so a warp's stores fill whole sectors.
 // * With `tri` set (a diagonal panel pair), CTAs whose every pair has i >= j
 //   exit at once and leave their outputs unwritten; callers mask by i < j.
 //
@@ -58,58 +80,19 @@
 // AND + popcount kernel: the yardstick the wgmma kernel is timed against.
 // Nothing on the main path calls it.
 
-#include <cstdint>
+#include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <mutex>
 
 namespace {
 
-constexpr int kStageWords = 4;  // words per staged row slice: one 16-byte copy
+constexpr int kStageWords = 4;  // words per stage: a 16-byte slice of each row
 constexpr uint32_t kByteOnes = 0x01010101u;
 
-// One stage of packed words: kStageWords words of each of BM i-rows and BN
-// j-rows, per plane.
-template <int BM, int BN>
-struct Packed {
-  uint4 i[2][BM];
-  uint4 j[2][BN];
-};
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// Copies words [w0, w0 + 4) of the CTA's BM i-rows and BN j-rows, both
-// planes, into one stage.  A row past the panel copies the panel's last row.
-template <int BM, int BN, int kThreads>
-__device__ __forceinline__ void load_stage(
-    Packed<BM, BN>& s, const uint32_t* __restrict__ planes_i, long long rows_i,
-    long long i_row0, long long i_left, const uint32_t* __restrict__ planes_j,
-    long long rows_j, long long j_row0, long long j_left, long long words,
-    long long w0, int tid) {
-  constexpr int kCopies = 2 * (BM + BN);
-#pragma unroll
-  for (int c = tid; c < kCopies; c += kThreads) {
-    const bool side_i = c < 2 * BM;
-    const int cc = side_i ? c : c - 2 * BM;
-    const int n = side_i ? BM : BN;
-    const int plane = cc / n, row = cc % n;
-    const long long left = side_i ? i_left : j_left;
-    const long long r = (side_i ? i_row0 : j_row0) + (row < left ? row : left - 1);
-    const uint32_t* src =
-        (side_i ? planes_i : planes_j) + (plane * (side_i ? rows_i : rows_j) + r) * words + w0;
-    cp_async16(side_i ? &s.i[plane][row] : &s.j[plane][row], src);
-  }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // The three s8 indicator registers of one het/hom word pair for the K bytes
@@ -136,41 +119,83 @@ __device__ __forceinline__ void store_counters(int32_t* __restrict__ out, long l
   o[5 * plane] = (int32_t)(hh + hv + vh + vv);
 }
 
-// ---------------------------------------------------------------------------
-// The wgmma kernel (the main path).
-
-constexpr int kWgBM = 128, kWgBN = 64;
-constexpr int kWgThreads = 256;                      // two warpgroups
-constexpr int kWgStages = 4;                         // packed-word ring
-constexpr int kWgBBufs = 3;                          // unpacked-B buffers
-constexpr int kWgBWord = 3 * kWgBN * 32;             // bytes of B per word
-constexpr int kWgBStage = kStageWords * kWgBWord;    // per stage
-using WgPacked = Packed<kWgBM, kWgBN>;
-constexpr int kWgSmem = kWgStages * (int)sizeof(WgPacked) + kWgBBufs * kWgBStage;
-
-// Unpacks words [2 * half, 2 * half + 2) of the j rows of one packed stage
-// into B's core-matrix layout: one (row, K half, word) task per thread.
-__device__ __forceinline__ void wg_unpack_b(uint8_t* b, const WgPacked& s, int half,
-                                            int tid) {
-  static_assert(2 * 2 * kWgBN == kWgThreads, "one task per thread per half");
-  const int task = tid + half * kWgThreads;
-  const int row = task % kWgBN, kh = (task / kWgBN) % 2, w = task / (2 * kWgBN);
-  const uint32_t het = reinterpret_cast<const uint32_t*>(&s.j[0][row])[w];
-  const uint32_t hom = reinterpret_cast<const uint32_t*>(&s.j[1][row])[w];
-  uint32_t h[4], v[4], u[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) indicators(het, hom, 4 * kh + c, h[c], v[c], u[c]);
-  uint8_t* base = b + w * kWgBWord + (row / 8) * 256 + kh * 128 + (row % 8) * 16;
-  *reinterpret_cast<uint4*>(base) = make_uint4(h[0], h[1], h[2], h[3]);
-  *reinterpret_cast<uint4*>(base + 2048) = make_uint4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<uint4*>(base + 4096) = make_uint4(u[0], u[1], u[2], u[3]);
+// store_counters for the neighbouring pairs (i, j) and (i, j + 1), each
+// counter as one 8-byte store; `at` is even.
+__device__ __forceinline__ void store_counter_pairs(int32_t* __restrict__ out, long long plane,
+                                                    long long at, uint32_t hh0, uint32_t hh1,
+                                                    uint32_t hv0, uint32_t hv1, uint32_t vh0,
+                                                    uint32_t vh1, uint32_t vv0, uint32_t vv1,
+                                                    uint32_t uu0, uint32_t uu1) {
+  int2* o = reinterpret_cast<int2*>(out + at);
+  const long long p = plane / 2;
+  o[0 * p] = make_int2((int32_t)hh0, (int32_t)hh1);
+  o[1 * p] = make_int2((int32_t)(hh0 + hv0), (int32_t)(hh1 + hv1));
+  o[2 * p] = make_int2((int32_t)(hh0 + vh0), (int32_t)(hh1 + vh1));
+  o[3 * p] = make_int2((int32_t)((vv0 - uu0) >> 1), (int32_t)((vv1 - uu1) >> 1));
+  o[4 * p] = make_int2((int32_t)((vv0 + uu0) >> 1), (int32_t)((vv1 + uu1) >> 1));
+  o[5 * p] = make_int2((int32_t)(hh0 + hv0 + vh0 + vv0), (int32_t)(hh1 + hv1 + vh1 + vv1));
 }
+
+// ---------------------------------------------------------------------------
+// mbarriers and warpgroup registers.
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+// Arrives on `bar` and adds `bytes` to the copies its phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.expect_tx.shared::cta.b64 state, [%0], %1;\n}\n"
+               ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// One box of a 3-D tensor map (words, rows, planes) at (w, row, 0) into
+// shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int w, int row,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(w), "r"(row), "r"(0), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits for the completion of the barrier's phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+template <int N>
+__device__ __forceinline__ void regs_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// wgmma.
 
 // Shared-memory matrix descriptor: K-major, no swizzle, core matrices 8 rows
 // x 16 bytes; LBO 128 bytes (next K half), SBO 256 bytes (next 8 rows).
 __device__ __forceinline__ uint64_t b_desc(const uint8_t* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return (uint64_t)((a >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
          ((uint64_t)(256 >> 4) << 32);
 }
 
@@ -230,135 +255,247 @@ __device__ __forceinline__ void wgmma_n64(int (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma kernel (the main path).
 
-// A registers (H, v, u) of rows r0 and r1 for words w0 and w0 + 1 of a stage.
-__device__ __forceinline__ void wg_build_a(const WgPacked& st, int r0, int r1, int t,
-                                           int w0, uint32_t (&h)[2][4],
-                                           uint32_t (&v)[2][4], uint32_t (&u)[2][4]) {
+constexpr int kWgBM = 128, kWgBN = 64;               // pair tile: i-rows x j-rows
+constexpr int kConsumers = 2;                        // warpgroups that issue, 64 i-rows each
+constexpr int kWgThreads = 128 * (kConsumers + 1);   // and the producer warpgroup
+constexpr int kPackedStages = 8;                     // packed-word ring
+constexpr int kBStages = 4;                          // unpacked-B ring
+constexpr int kLoadAhead = kPackedStages - kBStages; // stages loaded ahead of the unpack
+constexpr int kASets = 3;                            // A register sets: groups in flight + 1
+// setmaxnreg moves registers inside the CTA's pool, the 168 a thread has at
+// launch (65,536 / 384, in steps of 8): 24 x 128 + 240 x 256 is all of it.
+constexpr int kLaunchRegs = 65536 / kWgThreads / 8 * 8;
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= kLaunchRegs * kWgThreads,
+              "more registers than the CTA's pool");
+constexpr int kWgBWord = 3 * kWgBN * 32;             // bytes of B per word
+constexpr int kWgBStage = kStageWords * kWgBWord;    // per stage
+
+// One stage of packed words: kStageWords words of each of the tile's i-rows
+// and j-rows, per plane, as the two tensor-map boxes land.
+struct WgPacked {
+  uint4 i[2][kWgBM];
+  uint4 j[2][kWgBN];
+};
+
+struct WgShared {
+  uint8_t b[kBStages][kWgBStage];  // first: descriptors need 16-byte alignment
+  WgPacked packed[kPackedStages];
+  uint64_t packed_full[kPackedStages];   // the stage's two boxes landed
+  uint64_t packed_empty[kPackedStages];  // every warp has read the stage (12 warps)
+  uint64_t b_full[kBStages];             // B unpacked (4 producer warps)
+  uint64_t b_empty[kBStages];            // its groups retired (8 consumer warps)
+};
+constexpr int kWgSmem = (int)sizeof(WgShared);
+static_assert(kWgSmem <= 227 * 1024, "over the shared memory a block can have");
+
+// The producer warpgroup: loads every stage and unpacks its j rows into B.
+// Its first thread loads a stage as two tensor-map boxes (4 words x 128
+// i-rows x 2 planes, 4 words x 64 j-rows x 2 planes); rows past the storage
+// read as zeros, rows past the panel as whatever the storage holds there, and
+// no pair of either is stored.
+__device__ __forceinline__ void wg_produce(WgShared& sm, const CUtensorMap* map_i,
+                                           const CUtensorMap* map_j, int i_row0, int j_row0,
+                                           int steps, int ptid) {
+  auto load = [&](int s) {
+    const int slot = s % kPackedStages;
+    if (s >= kPackedStages) mbar_wait(&sm.packed_empty[slot], ((s / kPackedStages) - 1) & 1);
+    mbar_arrive_expect(&sm.packed_full[slot], sizeof(WgPacked));
+    tma_load(sm.packed[slot].i, map_i, s * kStageWords, i_row0, &sm.packed_full[slot]);
+    tma_load(sm.packed[slot].j, map_j, s * kStageWords, j_row0, &sm.packed_full[slot]);
+  };
+  if (ptid == 0)
+    for (int s = 0; s < steps && s < kLoadAhead; ++s) load(s);
+
+  // Lane l of producer warp pw unpacks word l / 8 of rows (2 pw + b) * 8 +
+  // l % 8, b = 0, 1, both K halves: a warp's reads of the packed stage hit 32
+  // banks, and each 8 lanes of a store write one 128-byte run of core matrices.
+  const int lane = ptid % 32, pw = ptid / 32;
+  const int w = lane / 8, row_lo = lane % 8;
+  const int b_off = w * kWgBWord + 2 * pw * 256 + row_lo * 16;
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % kPackedStages, bslot = s % kBStages;
+    mbar_wait(&sm.packed_full[slot], (s / kPackedStages) & 1);
+    if (s >= kBStages) mbar_wait(&sm.b_empty[bslot], ((s / kBStages) - 1) & 1);
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int w = w0 + k;
-    const uint32_t het0 = reinterpret_cast<const uint32_t*>(&st.i[0][r0])[w];
-    const uint32_t hom0 = reinterpret_cast<const uint32_t*>(&st.i[1][r0])[w];
-    const uint32_t het1 = reinterpret_cast<const uint32_t*>(&st.i[0][r1])[w];
-    const uint32_t hom1 = reinterpret_cast<const uint32_t*>(&st.i[1][r1])[w];
-    indicators(het0, hom0, t, h[k][0], v[k][0], u[k][0]);      // row g,   K lo
-    indicators(het1, hom1, t, h[k][1], v[k][1], u[k][1]);      // row g+8, K lo
-    indicators(het0, hom0, t + 4, h[k][2], v[k][2], u[k][2]);  // row g,   K hi
-    indicators(het1, hom1, t + 4, h[k][3], v[k][3], u[k][3]);  // row g+8, K hi
+    for (int b = 0; b < 2; ++b) {
+      const int row = (2 * pw + b) * 8 + row_lo;
+      const uint32_t het = reinterpret_cast<const uint32_t*>(&sm.packed[slot].j[0][row])[w];
+      const uint32_t hom = reinterpret_cast<const uint32_t*>(&sm.packed[slot].j[1][row])[w];
+#pragma unroll
+      for (int kh = 0; kh < 2; ++kh) {
+        uint32_t h[4], v[4], u[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) indicators(het, hom, 4 * kh + c, h[c], v[c], u[c]);
+        uint8_t* base = sm.b[bslot] + b_off + b * 256 + kh * 128;
+        *reinterpret_cast<uint4*>(base) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(base + 2048) = make_uint4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<uint4*>(base + 4096) = make_uint4(u[0], u[1], u[2], u[3]);
+      }
+    }
+    fence_proxy_async();  // the writes, to wgmma's async proxy
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(&sm.b_full[bslot]);
+      mbar_arrive(&sm.packed_empty[slot]);
+    }
+    if (ptid == 0 && s + kLoadAhead < steps) load(s + kLoadAhead);
   }
 }
 
-// One group of six wgmmas: two words x (H_i.[H_j; v_j], v_i.[H_j; v_j],
-// u_i.u_j), B of the first word at `b`.
+// The packed words of rows r0 and r1 (both planes) for words w and w + 1 of
+// a stage: one 8-byte load each, eight rows of a warp in one wavefront.
+struct APair {
+  uint2 het0, hom0, het1, hom1;
+};
+__device__ __forceinline__ APair wg_load_a(const WgPacked& st, int r0, int r1, int w) {
+  return {reinterpret_cast<const uint2*>(&st.i[0][r0])[w / 2],
+          reinterpret_cast<const uint2*>(&st.i[1][r0])[w / 2],
+          reinterpret_cast<const uint2*>(&st.i[0][r1])[w / 2],
+          reinterpret_cast<const uint2*>(&st.i[1][r1])[w / 2]};
+}
+
+// A registers of one word, [H, v, u][fragment register], from its packed
+// words of rows r0 (het0, hom0) and r1 = r0 + 8 (het1, hom1).
+__device__ __forceinline__ void wg_build_a(uint32_t het0, uint32_t hom0, uint32_t het1,
+                                           uint32_t hom1, int t, uint32_t (&a)[3][4]) {
+  indicators(het0, hom0, t, a[0][0], a[1][0], a[2][0]);      // row g,   K lo
+  indicators(het1, hom1, t, a[0][1], a[1][1], a[2][1]);      // row g+8, K lo
+  indicators(het0, hom0, t + 4, a[0][2], a[1][2], a[2][2]);  // row g,   K hi
+  indicators(het1, hom1, t + 4, a[0][3], a[1][3], a[2][3]);  // row g+8, K hi
+}
+
+// One group of three wgmmas for one word: H_i.[H_j; v_j], v_i.[H_j; v_j] and
+// u_i.u_j, B of the word at `b`.
 __device__ __forceinline__ void wg_issue(int (&acc_h)[64], int (&acc_v)[64],
-                                         int (&acc_u)[32], const uint32_t (&h)[2][4],
-                                         const uint32_t (&v)[2][4],
-                                         const uint32_t (&u)[2][4], const uint8_t* b) {
+                                         int (&acc_u)[32], const uint32_t (&a)[3][4],
+                                         const uint8_t* b) {
   fence_operands(acc_h);
   fence_operands(acc_v);
   fence_operands(acc_u);
   wgmma_fence();
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const uint8_t* bw = b + k * kWgBWord;
-    wgmma_n128(acc_h, h[k], b_desc(bw));
-    wgmma_n128(acc_v, v[k], b_desc(bw));
-    wgmma_n64(acc_u, u[k], b_desc(bw + 4096));
-  }
+  wgmma_n128(acc_h, a[0], b_desc(b));
+  wgmma_n128(acc_v, a[1], b_desc(b));
+  wgmma_n64(acc_u, a[2], b_desc(b + 4096));
   wgmma_commit();
   fence_operands(acc_h);
   fence_operands(acc_v);
   fence_operands(acc_u);
 }
 
+// One stage of a consumer warpgroup: per word, build A into set
+// (4 * k + w) % kASets, issue, and leave kASets - 1 groups in flight.
+template <int k>
+__device__ __forceinline__ void wg_consume_stage(WgShared& sm, int s, int r0, int r1, int t,
+                                                 int lane, int (&acc_h)[64], int (&acc_v)[64],
+                                                 int (&acc_u)[32],
+                                                 uint32_t (&a)[kASets][3][4]) {
+  const int slot = s % kPackedStages, bslot = s % kBStages;
+  mbar_wait(&sm.packed_full[slot], (s / kPackedStages) & 1);
+  const WgPacked& st = sm.packed[slot];
+  APair p;
+#pragma unroll
+  for (int w = 0; w < kStageWords; ++w) {
+    uint32_t(&x)[3][4] = a[(kStageWords * k + w) % kASets];
+    if (w % 2 == 0) p = wg_load_a(st, r0, r1, w);
+    if (w % 2 == 0)
+      wg_build_a(p.het0.x, p.hom0.x, p.het1.x, p.hom1.x, t, x);
+    else
+      wg_build_a(p.het0.y, p.hom0.y, p.het1.y, p.hom1.y, t, x);
+    if (w == kStageWords - 1) {  // this warp has read the stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.packed_empty[slot]);
+    }
+    if (w == 0) mbar_wait(&sm.b_full[bslot], (s / kBStages) & 1);
+    wg_issue(acc_h, acc_v, acc_u, x, sm.b[bslot] + w * kWgBWord);
+    wgmma_wait<kASets - 1>();
+    // Once word 1's wait returns, the groups of the stage before have retired.
+    if (w == 1 && s > 0 && lane == 0) mbar_arrive(&sm.b_empty[(s - 1) % kBStages]);
+  }
+}
+
 __global__ void __launch_bounds__(kWgThreads, 1)
-king_counts_wgmma_kernel(const uint32_t* __restrict__ planes_i, long long rows_i,
-                         long long i_off, long long ni,
-                         const uint32_t* __restrict__ planes_j, long long rows_j,
+king_counts_wgmma_kernel(const __grid_constant__ CUtensorMap map_i, long long i_off,
+                         long long ni, const __grid_constant__ CUtensorMap map_j,
                          long long j_off, long long nj, long long words, int tri,
                          int32_t* __restrict__ out) {
   const long long i0 = (long long)blockIdx.y * kWgBM, j0 = (long long)blockIdx.x * kWgBN;
   if (tri && i0 >= j0 + kWgBN - 1) return;  // every pair of the tile has i >= j
 
   extern __shared__ __align__(128) uint8_t smem[];
-  WgPacked* raw = reinterpret_cast<WgPacked*>(smem);
-  uint8_t* bbuf = smem + kWgStages * sizeof(WgPacked);
-
+  WgShared& sm = *reinterpret_cast<WgShared*>(smem);
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in quad
-  const int wg = warp / 4, q = warp % 4;  // warpgroup, warp within it
-
-  const long long i_row0 = i_off + i0, i_left = ni - i0;
-  const long long j_row0 = j_off + j0, j_left = nj - j0;
   const int steps = (int)(words / kStageWords);
-  auto load = [&](int s) {
-    load_stage<kWgBM, kWgBN, kWgThreads>(raw[s % kWgStages], planes_i, rows_i, i_row0,
-                                         i_left, planes_j, rows_j, j_row0, j_left,
-                                         words, (long long)s * kStageWords, tid);
-  };
-
-#pragma unroll
-  for (int s = 0; s < kWgStages - 1; ++s) {
-    if (s < steps) load(s);
-    cp_async_commit();
-  }
-  cp_async_wait<kWgStages - 2>();
-  __syncthreads();
-  wg_unpack_b(bbuf, raw[0], 0, tid);
-  wg_unpack_b(bbuf, raw[0], 1, tid);
-  fence_proxy_async();
-
-  int acc_h[64] = {}, acc_v[64] = {}, acc_u[32] = {};  // HH|Hv, vH|vv, uu
-  const int r0 = 64 * wg + 16 * q + g, r1 = r0 + 8;
-
-  // Stage s reads B buffer s % 3 while stage s - 1 may still read its own
-  // and stage s + 1 is unpacked into the third, half after each group.
-  for (int step = 0; step < steps; ++step) {
-    const bool more = step + 1 < steps;
-    const WgPacked& st = raw[step % kWgStages];
-    const WgPacked& st_next = raw[(step + 1) % kWgStages];
-    const uint8_t* b = bbuf + (step % kWgBBufs) * kWgBStage;
-    uint8_t* b_next = bbuf + ((step + 1) % kWgBBufs) * kWgBStage;
-    uint32_t xh[2][4], xv[2][4], xu[2][4], yh[2][4], yv[2][4], yu[2][4];
-    cp_async_wait<kWgStages - 3>();  // this thread's copies of stage step + 1
-    wg_build_a(st, r0, r1, t, 0, xh, xv, xu);
-    // B of this stage and the packed words of the next are visible to all;
-    // every warpgroup retired the stage before last (whose B buffer the next
-    // unpack reuses) and built its A from the previous packed stage (whose
-    // slot the next load reuses).
-    __syncthreads();
-    if (step + kWgStages - 1 < steps) load(step + kWgStages - 1);
-    cp_async_commit();
-    wg_issue(acc_h, acc_v, acc_u, xh, xv, xu, b);
-    if (more) wg_unpack_b(b_next, st_next, 0, tid);
-    wgmma_wait<1>();  // the previous stage's words 2-3 are retired
-    wg_build_a(st, r0, r1, t, 2, yh, yv, yu);
-    wg_issue(acc_h, acc_v, acc_u, yh, yv, yu, b + 2 * kWgBWord);
-    if (more) {
-      wg_unpack_b(b_next, st_next, 1, tid);
-      fence_proxy_async();
+  if (tid == 0) {
+    for (int k = 0; k < kPackedStages; ++k) {
+      mbar_init(&sm.packed_full[k], 1);
+      mbar_init(&sm.packed_empty[k], 4 * (kConsumers + 1));
     }
-    wgmma_wait<1>();  // words 0-1 are retired
+    for (int k = 0; k < kBStages; ++k) {
+      mbar_init(&sm.b_full[k], 4);
+      mbar_init(&sm.b_empty[k], 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  wgmma_wait<0>();
-  fence_operands(acc_h);
-  fence_operands(acc_v);
-  fence_operands(acc_u);
+  __syncthreads();
 
-  // Accumulator layout: entry 4n + e is row g + 8 * (e / 2), column
-  // 8n + 2t + e % 2; columns 64-127 of acc_h / acc_v hold Hv / vv.
-  const long long plane = ni * nj;
+  const int wg = tid / 128;
+  if (wg == kConsumers) {
+    regs_dealloc<kProducerRegs>();
+    wg_produce(sm, &map_i, &map_j, (int)(i_off + i0), (int)(j_off + j0), steps,
+               tid - 128 * kConsumers);
+  } else {
+    regs_alloc<kConsumerRegs>();
+    const int lane = tid & 31, q = (tid >> 5) & 3;  // warp within the warpgroup
+    const int g = lane >> 2, t = lane & 3;          // fragment row group, thread in quad
+    const int r0 = 64 * wg + 16 * q + g, r1 = r0 + 8;
+    int acc_h[64] = {}, acc_v[64] = {}, acc_u[32] = {};  // HH|Hv, vH|vv, uu
+    uint32_t a[kASets][3][4];
+    // kASets stages per trip, so that each word's register set is fixed.
+    static_assert(kASets == 3, "one call per stage of a trip");
+    for (int s = 0; s < steps; s += kASets) {
+      wg_consume_stage<0>(sm, s, r0, r1, t, lane, acc_h, acc_v, acc_u, a);
+      if (s + 1 < steps)
+        wg_consume_stage<1>(sm, s + 1, r0, r1, t, lane, acc_h, acc_v, acc_u, a);
+      if (s + 2 < steps)
+        wg_consume_stage<2>(sm, s + 2, r0, r1, t, lane, acc_h, acc_v, acc_u, a);
+    }
+    wgmma_wait<0>();
+    fence_operands(acc_h);
+    fence_operands(acc_v);
+    fence_operands(acc_u);
+
+    // Accumulator layout: entry 4n + e is row g + 8 * (e / 2), column
+    // 8n + 2t + e % 2; columns 64-127 of acc_h / acc_v hold Hv / vv.  Entries
+    // e and e + 1 are neighbours in a row: with nj even they go out as one
+    // 8-byte store, so a warp's store fills whole 32-byte sectors.
+    const long long plane = ni * nj;
 #pragma unroll
-  for (int nb = 0; nb < kWgBN / 8; ++nb) {
+    for (int nb = 0; nb < kWgBN / 8; ++nb) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long i = i0 + (e < 2 ? r0 : r1);
-      const long long j = j0 + nb * 8 + 2 * t + (e & 1);
-      if (i >= ni || j >= nj) continue;
-      store_counters(out, plane, i * nj + j, acc_h[4 * nb + e], acc_h[4 * (nb + 8) + e],
-                     acc_v[4 * nb + e], acc_v[4 * (nb + 8) + e], acc_u[4 * nb + e]);
+      for (int e = 0; e < 4; e += 2) {
+        const long long i = i0 + (e < 2 ? r0 : r1);
+        const long long j = j0 + nb * 8 + 2 * t;
+        if (i >= ni || j >= nj) continue;
+        if (nj % 2 == 0) {
+          store_counter_pairs(out, plane, i * nj + j, acc_h[4 * nb + e], acc_h[4 * nb + e + 1],
+                              acc_h[4 * (nb + 8) + e], acc_h[4 * (nb + 8) + e + 1],
+                              acc_v[4 * nb + e], acc_v[4 * nb + e + 1], acc_v[4 * (nb + 8) + e],
+                              acc_v[4 * (nb + 8) + e + 1], acc_u[4 * nb + e],
+                              acc_u[4 * nb + e + 1]);
+          continue;
+        }
+#pragma unroll
+        for (int d = 0; d < 2; ++d) {
+          if (j + d >= nj) continue;
+          store_counters(out, plane, i * nj + j + d, acc_h[4 * nb + e + d],
+                         acc_h[4 * (nb + 8) + e + d], acc_v[4 * nb + e + d],
+                         acc_v[4 * (nb + 8) + e + d], acc_u[4 * nb + e + d]);
+        }
+      }
     }
   }
 }
@@ -483,6 +620,71 @@ king_counts_popc_kernel(const uint32_t* __restrict__ planes_i, long long rows_i,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor maps of the planes, encoded once per (storage, box) and kept.
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+struct MapEntry {
+  const void* planes;
+  long long rows, words;
+  int box_rows;
+  CUtensorMap map;
+};
+constexpr int kMapCache = 16;
+MapEntry g_maps[kMapCache];
+int g_maps_used = 0, g_maps_next = 0;
+std::mutex g_maps_mutex;
+
+// The map of planes [2, rows, words] (uint32) with boxes of 4 words x
+// box_rows rows x 2 planes; false when the driver refuses it.
+bool plane_map(const void* planes, long long rows, long long words, int box_rows,
+               CUtensorMap* map) {
+  std::lock_guard<std::mutex> lock(g_maps_mutex);
+  for (int k = 0; k < g_maps_used; ++k) {
+    const MapEntry& e = g_maps[k];
+    if (e.planes == planes && e.rows == rows && e.words == words && e.box_rows == box_rows) {
+      *map = e.map;
+      return true;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)words, (cuuint64_t)rows, 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)words * 4, (cuuint64_t)(rows * words) * 4};
+  const cuuint32_t box[3] = {kStageWords, (cuuint32_t)box_rows, 2};
+  const cuuint32_t steps[3] = {1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(planes), dims, strides,
+             box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  g_maps[g_maps_next] = {planes, rows, words, box_rows, *map};
+  g_maps_next = (g_maps_next + 1) % kMapCache;
+  if (g_maps_used < kMapCache) ++g_maps_used;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -502,11 +704,16 @@ int king_counts_launch(const void* planes_i, long long rows_i, long long i_off,
   const cudaError_t err = cudaFuncSetAttribute(
       king_counts_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  // Tensor-map coordinates are 32-bit.
+  if (rows_i >= (1ll << 31) || rows_j >= (1ll << 31) || words >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap map_i{}, map_j{};  // with no words, no stage loads and the counters are 0
+  if (words > 0 && (!plane_map(planes_i, rows_i, words, kWgBM, &map_i) ||
+                    !plane_map(planes_j, rows_j, words, kWgBN, &map_j)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((unsigned)((nj + kWgBN - 1) / kWgBN), (unsigned)((ni + kWgBM - 1) / kWgBM));
   king_counts_wgmma_kernel<<<grid, kWgThreads, kWgSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(planes_i), rows_i, i_off, ni,
-      static_cast<const uint32_t*>(planes_j), rows_j, j_off, nj, words, tri,
-      static_cast<int32_t*>(out));
+      map_i, i_off, ni, map_j, j_off, nj, words, tri, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,6 +14,16 @@ returns six ``[NI, NJ]`` int32 counters.  With ``tri`` set (a diagonal panel
 pair), counter tiles wholly below the diagonal are left unwritten: callers
 mask with the strict global ``i < j`` predicate (cuking.cu:199).
 
+The kernel (``king_counts_wgmma_kernel``) computes the five int8 products
+of :func:`panel_counts_five_block` on Hopper's tensor cores, one 128 x 64
+pair tile per CTA (a 1024 x 1024 step is one wave of 128 CTAs), with its
+warpgroups specialised: a producer loads the packed words through tensor
+maps (encoded on the host once per storage and kept) and unpacks the j
+rows into shared memory, and two consumers build the i rows' indicators in
+registers and issue ``wgmma``, handing stages over on mbarriers; the
+source's header says why.  The tensor maps' 32-bit coordinates admit
+storages of fewer than 2^31 rows and words.
+
 A CPU tensor takes the plain version, :func:`panel_counts_five_block`: the
 same five int8 products as the kernel, through ``torch._int_mm``.  A CUDA
 tensor launches the kernel or raises; nothing falls back.  The kernels are

@@ -84,11 +84,13 @@ def test_cuda_kernel_matches_plain_version(cuda_device, sites, i_off, j_off,
 @pytest.mark.gpu
 @pytest.mark.parametrize("sites,n,tri", [
     (100_000, 320, 0), (128, 300, 0), (128, 300, 1), (1_000_000, 130, 0),
+    (93_511, 1024, 0), (93_511, 1024, 1),
 ])
 def test_cuda_kernel_matches_five_block_and_popc_on_edge_rows(cuda_device, sites, n, tri):
-    """Edge rows at 100,000 sites, at W = 4 (128 sites) and at 1,000,000
-    sites: the kernel equals the five-block plain version, and so does the
-    AND + popcount kernel; each launch is counted once, on its own counter."""
+    """Edge rows at 100,000 sites, at W = 4 (128 sites), at 1,000,000 sites
+    and at the UK Biobank step (93,511 sites = 2,924 words, 1024 x 1024):
+    the kernel equals the five-block plain version, and so does the AND +
+    popcount kernel; each launch is counted once, on its own counter."""
     layout = PlaneLayout.create(sites)
     planes = torch.from_numpy(
         edge_planes(n, layout, np.random.default_rng(sites)).view(np.int32)

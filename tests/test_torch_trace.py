@@ -7,8 +7,10 @@ tool's hitful and ring rows against the JAX ``KingEngine`` on the JAX
 tool's own CPU inputs, bit for bit."""
 
 import importlib
+import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -68,6 +70,32 @@ NAMES = [
 @pytest.mark.parametrize("name,cat,expected", NAMES, ids=[f"{c}:{n[:40]}" for n, c, _ in NAMES])
 def test_classify(name, cat, expected):
     assert trace.classify(name, cat) == expected
+
+
+KERNEL_SOURCE = os.path.join(REPO, "cuking_tpu_torch", "csrc", "king_counts.cu")
+FROZEN_TRACE = os.path.join(REPO, "kingbench", "frozen", "trace.py")
+
+
+def test_every_kernel_of_the_count_step_is_count_kernel_time():
+    """Every ``__global__`` kernel in ``csrc/king_counts.cu`` has
+    ``king_counts`` in its name, the main path's ``king_counts_wgmma_kernel``
+    among them, and the port's classify and the benchmark's frozen copy
+    (read from its file; it is stdlib only) both put each in the count
+    kernel's category, so that no count-step work escapes the roofline."""
+    with open(KERNEL_SOURCE) as f:
+        source = f.read()
+    names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", source)
+    assert trace.LAUNCH_NAMES["king_counts"] == "king_counts_wgmma_kernel"
+    assert "king_counts_wgmma_kernel" in names
+    spec = importlib.util.spec_from_file_location("frozen_trace", FROZEN_TRACE)
+    frozen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(frozen)
+    for name in names:
+        assert "king_counts" in name, name
+        shown = f"(anonymous namespace)::{name}(CUtensorMap_st, long long, int*)"
+        assert trace.classify(shown, "kernel") == trace.COUNT_KERNEL, name
+        assert frozen.classify(shown, "kernel") == frozen.COUNT_KERNEL, name
 
 
 def _x(name, cat, ts, dur, card=0, stream=7):
