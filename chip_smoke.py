@@ -41,9 +41,14 @@ Phases (any failure exits nonzero):
    (off the diagonal; a ``tri`` diagonal pair; limits inside the block),
    random counters with zero-het rows (NaN, -inf kin) and three pairs whose
    kin equals the threshold, ``strict`` and ``sym``, and an overflow past
-   ``capacity`` whose count stays exact.  Then CUDA-event times at the
-   engine's shape, hit-free and keep-all, beside the plain version and the
-   bound (the counters read once, the hits written once).
+   ``capacity`` whose count stays exact; the thresholded instance at a
+   threshold and at kin > -2, and the keep-all instance (``--keep_all``)
+   on the same five shapes, where every candidate must be a row, NaN and
+   -inf kin included (a NaN compared as NaN, every other field by its
+   bits).  Then CUDA-event times at the engine's shape, hit-free, kin > -2
+   and the keep-all instance, beside the plain version and the bound (the
+   counters read once, the hits written once); the keep-all instance may
+   not read below its bound.
 3. The main path: ``KingEngine`` at 32,768 samples x 100,000 sites with 64
    planted duplicate pairs; exactly those must come out, with kin == 0.5.
    Kernel launch counts are read from this run.  One more sweep's step loop
@@ -56,7 +61,9 @@ Phases (any failure exits nonzero):
 4. Keep-all parity at 4,096 x 100,000 (8,386,560 hits, past the default
    2^20 slots, so the sweep re-runs at 2^23): the cuda engine, the matmul
    engine and the cuda engine with the plain emit step give identical
-   results.
+   results; then the same shard with ``KingConfig.keep_all``
+   (``--keep_all``) gives them too, in one sweep, with one launch of each
+   kernel a step (its launch counts are read from its own run).
 5. The CLI end to end on a synthetic Parquet input (pyarrow is required):
    split 1, the three shards of split 2 merged, and the CPU plain path, all
    equal.
@@ -577,15 +584,25 @@ def _sorted_rows(rows: np.ndarray) -> np.ndarray:
     return rows[:, np.lexsort(rows[::-1])]
 
 
+def _nan_as_one(rows: np.ndarray) -> np.ndarray:
+    """The rows with every NaN kin read as one value: a NaN's bits are the
+    arithmetic's, not KING's."""
+    rows = rows.copy()
+    rows[2, np.isnan(rows[2].view(np.float32))] = np.float32(np.nan).view(np.int32)
+    return rows
+
+
 def compare_emits(kernel_hits, plain_hits, what: str) -> int:
     """Holds the kernel's HitBuffer against the plain version's (which had
-    room for every hit): the same exact count, and the same rows; past the
-    kernel's capacity, each row it kept is one of the plain version's.
-    Returns the largest difference of a count or field (0 when they agree)."""
+    room for every hit): the same exact count, and the same rows, NaN kin
+    compared as NaN and every other field by its bits; past the kernel's
+    capacity, each row it kept is one of the plain version's.  Returns the
+    largest difference of a count or field (0 when they agree)."""
     total, ref_total = int(kernel_hits.count), int(plain_hits.count)
     check(total == ref_total, f"{what}: the kernel counted {total} hits, the plain "
                               f"version {ref_total}")
-    got, ref = kernel_hits.rows(total), _sorted_rows(plain_hits.rows(ref_total))
+    got = _nan_as_one(kernel_hits.rows(total))
+    ref = _sorted_rows(_nan_as_one(plain_hits.rows(ref_total)))
     if total <= kernel_hits.capacity:
         got = _sorted_rows(got)
     else:
@@ -623,24 +640,38 @@ def phase_emit(card: str) -> dict:
     median = float(king_from_counts(off).kin.median())
     check(np.isfinite(tie), "the tied kin is not finite")
     # name, counters, gi_base, gj_base, i_limit, j_limit, threshold, strict,
-    # sym, capacity
+    # sym, capacity, keep_all.  The keep_all cases launch the kernel's
+    # keep-all instance (``--keep_all``, every candidate a row, NaN and -inf
+    # kin included; their threshold is not read); the others the thresholded
+    # one, where kin > -2 keeps every finite kin.
+    never = float("inf")
     cases = [
         ("count kernel's counters off the diagonal, kin > its median", off,
-         0, 1024, 1024, 2048, median, True, False, 1 << 20),
-        ("a tri diagonal pair (its lower tiles unwritten), strict, keep-all", tri,
-         1024, 1024, 2048, 2048, -2.0, True, False, 1 << 20),
-        ("limits inside the block (1000 x 900 of 1024 x 1024), keep-all", off,
-         0, 1024, 1000, 1924, -2.0, True, False, 1 << 20),
+         0, 1024, 1024, 2048, median, True, False, 1 << 20, False),
+        ("a tri diagonal pair (its lower tiles unwritten), strict, kin > -2", tri,
+         1024, 1024, 2048, 2048, -2.0, True, False, 1 << 20, False),
+        ("limits inside the block (1000 x 900 of 1024 x 1024), kin > -2", off,
+         0, 1024, 1000, 1924, -2.0, True, False, 1 << 20, False),
         ("random counters, NaN/-inf rows, 3 pairs at the threshold, strict and sym "
-         "across the diagonal", rand, 100, 90, 1100, 1100, tie, True, True, 1 << 20),
-        ("random counters, sym only, rectangular limits, keep-all", rand,
-         5000, 40, 5900, 700, -2.0, False, True, 1 << 20),
-        ("keep-all 1024 x 1024 into 1000 slots: overflow, exact count", off,
-         0, 1024, 1024, 2048, -2.0, True, False, 1000),
+         "across the diagonal", rand, 100, 90, 1100, 1100, tie, True, True, 1 << 20, False),
+        ("random counters, sym only, rectangular limits, kin > -2", rand,
+         5000, 40, 5900, 700, -2.0, False, True, 1 << 20, False),
+        ("kin > -2, 1024 x 1024 into 1000 slots: overflow, exact count", off,
+         0, 1024, 1024, 2048, -2.0, True, False, 1000, False),
+        ("keep-all instance: the count kernel's counters off the diagonal, 1024 x 1024",
+         off, 0, 1024, 1024, 2048, never, True, False, 1 << 20, True),
+        ("keep-all instance: a tri diagonal pair (its lower tiles unwritten), strict",
+         tri, 1024, 1024, 2048, 2048, never, True, False, 1 << 20, True),
+        ("keep-all instance: limits inside the block (1000 x 900 of 1024 x 1024)", off,
+         0, 1024, 1000, 1924, never, True, False, 1 << 20, True),
+        ("keep-all instance: random counters, NaN/-inf rows, strict and sym across "
+         "the diagonal", rand, 100, 90, 1100, 1100, never, True, True, 1 << 20, True),
+        ("keep-all instance: 1024 x 1024 into 1000 slots: overflow, exact count", off,
+         0, 1024, 1024, 2048, never, True, False, 1000, True),
     ]
     max_err = 0
-    for name, counts, gi, gj, il, jl, threshold, strict, sym, capacity in cases:
-        args = (gi, gj, il, jl, threshold, strict, sym)
+    for name, counts, gi, gj, il, jl, threshold, strict, sym, capacity, keep_all in cases:
+        args = (gi, gj, il, jl, threshold, strict, sym, keep_all)
         got = HitBuffer(capacity, dev)
         emit_hits(counts, got, *args)
         ref = HitBuffer(1 << 21, dev)
@@ -648,6 +679,16 @@ def phase_emit(card: str) -> dict:
         torch.cuda.synchronize()
         max_err = max(max_err, compare_emits(got, ref, name))
         total = int(got.count)
+        if keep_all:
+            ni, nj = counts.both_het.shape
+            li = gi + np.arange(ni)[:, None]
+            lj = gj + np.arange(nj)[None, :]
+            candidates = int(((li < il) & (lj < jl) & ((li < lj) if strict else True)).sum())
+            check(total == candidates, f"{name}: {total} rows for {candidates} candidates")
+            if counts is rand:
+                kin = got.rows(min(total, capacity))[2].view(np.float32)
+                check(bool(np.isnan(kin).any() and np.isneginf(kin).any()),
+                      f"{name}: no NaN or no -inf row")
         if threshold == tie:
             kin_bits = got.rows(total)[2]
             check(not (kin_bits == np.float32(tie).view(np.int32)).any(),
@@ -664,27 +705,38 @@ def phase_emit(card: str) -> dict:
     iters, warmup = 40, 4
     pairs = 1024 * 1024
 
-    def timed(fn, threshold, n_iters, n_warmup, timer):
+    def timed(fn, threshold, n_iters, n_warmup, timer, keep_all=False):
         hits = HitBuffer(pairs * (n_iters + n_warmup), dev)  # room for keep-all
         cycle = itertools.cycle(blocks)
         ms = timer(lambda: fn(next(cycle), hits, 0, 1024, 1024, 2048, threshold,
-                              True, False), n_iters, n_warmup)
+                              True, False, keep_all), n_iters, n_warmup)
         return ms, int(hits.count) // (n_iters + n_warmup)
 
     t = {}
     (t["ms"], t["host_ms"]), hit_free = timed(emit_hits, 0.0884, iters, warmup, queued_ms)
     (t["keep_all_ms"], _), keep_all = timed(emit_hits, -2.0, iters, warmup, queued_ms)
+    (t["keep_all_instance_ms"], _), every = timed(emit_hits, never, iters, warmup,
+                                                  queued_ms, keep_all=True)
     t["plain_ms"], _ = timed(emit_hits_plain, 0.0884, 3, 1, cuda_ms)
     t["plain_keep_all_ms"], _ = timed(emit_hits_plain, -2.0, 3, 1, cuda_ms)
-    check(hit_free == 0 and keep_all > 0.99 * pairs,
-          f"the timed runs had {hit_free} and {keep_all} hits per launch")
+    check(hit_free == 0 and keep_all > 0.99 * pairs and every == pairs,
+          f"the timed runs had {hit_free}, {keep_all} and {every} hits per launch")
     t["bound_ms"], t["bound_by"] = emit_bound(pairs, hit_free)
     t["keep_all_bound_ms"], _ = emit_bound(pairs, keep_all)
+    t["keep_all_instance_bound_ms"], _ = emit_bound(pairs, every)
+    check(t["keep_all_instance_ms"] >= t["keep_all_instance_bound_ms"],
+          f"the keep-all instance took {t['keep_all_instance_ms'] * 1e3:.1f} us, under "
+          f"its bound {t['keep_all_instance_bound_ms'] * 1e3:.1f} us: the bytes are "
+          f"counted too high")
     del blocks
     torch.cuda.empty_cache()
     say(f"phase 2b: emit 1024x1024 pairs: kernel hit-free {t['ms'] * 1e3:.1f} us "
         f"(bound {t['bound_ms'] * 1e3:.1f} us), keep-all {t['keep_all_ms'] * 1e3:.1f} us "
-        f"(bound {t['keep_all_bound_ms'] * 1e3:.1f} us); the host's time per launch "
+        f"(bound {t['keep_all_bound_ms'] * 1e3:.1f} us), keep-all instance "
+        f"{t['keep_all_instance_ms'] * 1e3:.1f} us (bound "
+        f"{t['keep_all_instance_bound_ms'] * 1e3:.1f} us, "
+        f"{100 * t['keep_all_instance_bound_ms'] / t['keep_all_instance_ms']:.1f}%); "
+        f"the host's time per launch "
         f"{t['host_ms'] * 1e3:.1f} us; plain version hit-free "
         f"{t['plain_ms']:.3f} ms, keep-all {t['plain_keep_all_ms']:.3f} ms ({card})")
     return {"max_abs_err": max_err, **t, "library_ms": None}
@@ -870,9 +922,31 @@ def phase_keep_all(card: str):
     check(len(a) == n * (n - 1) // 2, f"keep-all gave {len(a)} hits")
     for run in ("matmul", "cuda, plain emit"):
         same_results(results[run], a, f"keep-all {run} engine vs the cuda engine")
+    # The same shard through --keep_all (KingConfig.keep_all): the emit
+    # kernel's keep-all instance into a buffer of exactly the shard's pairs,
+    # one sweep, so each kernel launches once a step.
+    log = io.StringIO()
+    engine = KingEngine(storage, KingConfig(kernel="cuda", device="cuda", keep_all=True),
+                        logger=StageLogger(stream=log))
+    engine.planes_dev
+    torch.cuda.synchronize()
+    reset_launches()
+    t = time.perf_counter()
+    every = engine.run()
+    times["cuda, --keep_all"] = time.perf_counter() - t
+    own = read_launches("the --keep_all engine")
+    steps = len(engine._panel_pair_params())
+    check("re-running" not in log.getvalue(), "the --keep_all engine re-ran its sweep")
+    check(own["king_emit"] == own["king_counts"] == steps,
+          f"the --keep_all engine launched {own['king_emit']} emit and "
+          f"{own['king_counts']} count kernels for {steps} steps")
+    same_results(every, a, "the --keep_all engine vs the kin > -2 cuda engine")
+    launches = add_launches(launches, own)
     say(f"phase 4: keep-all {n} x {SITES}: {len(a)} hits past 2^20 slots, each sweep "
         f"re-ran at 2^23; the cuda engine, the matmul engine and the cuda engine with "
-        f"the plain emit are identical (sweeps incl. the re-run and the sort: "
+        f"the plain emit are identical; --keep_all gave the same rows in one sweep at "
+        f"exactly {len(every)} slots, {own['king_emit']} emit and {own['king_counts']} "
+        f"count launches for {steps} steps (sweeps incl. any re-run and the sort: "
         + ", ".join(f"{run} {s:.3f} s" for run, s in times.items()) + f", {card})")
     return launches, storage, a
 

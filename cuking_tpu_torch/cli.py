@@ -7,6 +7,13 @@ list+ingest Parquet in parallel → all-pairs KING (the panel sweep on
 ``--device``, or the ring over several positions with ``--use_mesh``) →
 overflow check → sort → write one Snappy Parquet partition per shard.
 
+``--keep_all`` writes every pair i < j of the shard, whatever its kin (NaN
+and ±inf included), as Hail's ``hl.king`` returns the whole kinship
+matrix: the engine's hit buffer is made at exactly the shard's pairs, so the
+sweep runs once.  It takes no ``--kin_threshold`` and no ``--use_mesh``;
+a shard whose pairs pass ``--max_results`` fails before ingest, naming the
+value needed.
+
 ``--device`` (default ``cuda``) names the torch device.  Without a CUDA
 device the default fails with exit code 1; ``--device cpu`` runs the plain
 PyTorch count path.  Under ``--use_mesh`` it takes a comma-separated list of
@@ -28,6 +35,9 @@ Usage::
     python -m cuking_tpu_torch.cli --input_uri gs://bucket/in.parquet \
         --output_uri gs://bucket/out.parquet --kin_threshold 0.0884 \
         --split_factor 4 --shard_index 3
+    # The whole kinship matrix of a small cohort, every pair a row:
+    python -m cuking_tpu_torch.cli --input_uri gs://bucket/in.parquet \
+        --output_uri gs://bucket/all-pairs.parquet --keep_all
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from cuking_tpu_torch.models.king import (
     KingConfig,
     KingEngine,
     PanelStorage,
+    keep_all_slots,
     resolve_indexed_kernel,
     resolve_kernel,
     resolve_kernel_name,
@@ -104,9 +115,15 @@ def build_parser() -> argparse.ArgumentParser:
         "Threads for parallel Parquet ingest"))
     p.add_argument("--max_results", type=int, default=DEFAULT_MAX_RESULTS, help=(
         "Capacity of the related-pair result buffer; exceeding it is an error"))
-    p.add_argument("--kin_threshold", type=float, default=DEFAULT_KIN_THRESHOLD,
+    p.add_argument("--kin_threshold", type=float, default=None,
                    help=("Only store kinship coefficients strictly larger than "
-                         "this threshold (default: 2nd degree or closer)"))
+                         f"this threshold (default: {DEFAULT_KIN_THRESHOLD}, "
+                         "2nd degree or closer)"))
+    p.add_argument("--keep_all", action="store_true", help=(
+        "Write every pair i < j of the shard, whatever its kinship (NaN and "
+        "+/-inf included), as Hail's hl.king returns the whole matrix; the "
+        "result buffer is sized to the shard's pairs, which must not exceed "
+        "--max_results. Takes no --kin_threshold and no --use_mesh"))
     p.add_argument("--split_factor", type=int, default=1, help=(
         "Split the relatedness matrix into k x k submatrices for sharding"))
     p.add_argument("--shard_index", type=int, default=0, help=(
@@ -391,6 +408,16 @@ def run(args: argparse.Namespace) -> None:
         raise InvalidArgumentError("Invalid split factor")
     if args.shard_index >= num_shards(args.split_factor) or args.shard_index < 0:
         raise InvalidArgumentError("Invalid shard index")
+    if args.keep_all:
+        if args.kin_threshold is not None:
+            raise InvalidArgumentError(
+                "--keep_all writes every pair and takes no --kin_threshold")
+        if args.use_mesh or args.distributed:
+            raise InvalidArgumentError(
+                "--keep_all runs on one device; the ring (--use_mesh, "
+                "--distributed) does not take it")
+    if args.kin_threshold is None:
+        args.kin_threshold = DEFAULT_KIN_THRESHOLD
     if args.distributed:
         args.use_mesh = True
     devices = _resolve_devices(args)
@@ -464,8 +491,11 @@ def _run_stages(args, storage: Storage, shard_index: int, devices: list[str],
         result_capacity=args.result_capacity,
         device=devices[0],
         verbose=not args.quiet,
+        keep_all=args.keep_all,
     )
     resolve_kernel_name(config)  # --kernel cuda on a CPU device fails here
+    if config.keep_all:
+        keep_all_slots(submatrix, config.max_results)  # before any allocation
 
     layout = PlaneLayout.create(metadata.num_sites)
     # Capacity model: fail up front with the minimal --split_factor that

@@ -21,7 +21,10 @@
 // each operation rounded on its own (`__f*_rn`, which nvcc never contracts
 // into a fused multiply-add, and an IEEE divide): the reference's order
 // (cuking.cu:286-307), bit for bit with the plain PyTorch version.  A pair
-// with no hets gives NaN or -inf and never passes the strict `>`.  A hit
+// with no hets gives NaN or -inf and never passes the strict `>`.  With
+// `keep_all` every candidate is a hit, NaN and -inf kin included (the
+// whole-matrix export, `--keep_all`); the flag is a template parameter, so
+// the thresholded kernel is compiled as it was without it.  A hit
 // writes (i, j, kin bits, ibs0, ibs1, ibs2) into column `slot` of the
 // [6, capacity] int32 buffer; with `sym` it writes (min(gi, gj), max(gi, gj)).
 //
@@ -56,6 +59,7 @@ __device__ __forceinline__ float king_kin(int32_t bh, int32_t hi, int32_t hj, in
   return __fadd_rn(0.5f, __fdiv_rn(numer, denom));
 }
 
+template <bool KeepAll>
 __global__ void __launch_bounds__(kEmitThreads)
 king_emit_kernel(const int32_t* __restrict__ counts, long long ni, long long nj,
                  long long gi_base, long long gj_base, long long i_limit,
@@ -79,7 +83,7 @@ king_emit_kernel(const int32_t* __restrict__ counts, long long ni, long long nj,
       bh = counts[p];
       oh = counts[3 * plane + p];
       kin = king_kin(bh, counts[plane + p], counts[2 * plane + p], oh);
-      hit = kin > threshold;
+      hit = KeepAll || kin > threshold;
     }
   }
 
@@ -125,15 +129,17 @@ extern "C" {
 // Appends the hits of one [6, ni, nj] int32 counter block (contiguous, on
 // the current device) to `out` ([6, capacity] int32, contiguous) and adds
 // their number to `*count` (one uint64; it stays exact past capacity).
-// The caller checks shapes, devices and that ni * nj > 0.  Launches on
-// `stream`, does not synchronise, and returns the CUDA error of the launch
-// (0 on success).
+// With `keep_all` nonzero every candidate is a hit and `threshold` is not
+// read.  The caller checks shapes, devices and that ni * nj > 0.  Launches
+// on `stream`, does not synchronise, and returns the CUDA error of the
+// launch (0 on success).
 int king_emit_launch(const void* counts, long long ni, long long nj, long long gi_base,
                      long long gj_base, long long i_limit, long long j_limit,
-                     float threshold, int strict, int sym, void* out,
+                     float threshold, int strict, int sym, int keep_all, void* out,
                      long long capacity, void* count, void* stream) {
   const long long blocks = (ni * nj + kEmitThreads - 1) / kEmitThreads;
-  king_emit_kernel<<<(unsigned)blocks, kEmitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = keep_all ? king_emit_kernel<true> : king_emit_kernel<false>;
+  kernel<<<(unsigned)blocks, kEmitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(counts), ni, nj, gi_base, gj_base, i_limit, j_limit,
       threshold, strict, sym, static_cast<int32_t*>(out), capacity,
       static_cast<unsigned long long*>(count));

@@ -7,7 +7,13 @@ Contract: schema ``i: string (required), j: string (required), kin: float32,
 ibs0/ibs1/ibs2: int32``; rows sorted by (sample_i, sample_j, kin) for
 columnar compression; Snappy (Hail's libhadoop can't read ZSTD,
 cuking.cu:796-798); one row group; one partition per shard named
-``part-%05d.snappy.parquet`` (cuking.cu:866-875)."""
+``part-%05d.snappy.parquet`` (cuking.cu:866-875).
+
+Spans (``utils/stopwatch.py``, recorded while a ``torch.profiler``
+records), inside the CLI's ``stage.write``: ``writer.table`` around
+:func:`results_to_table` (``rows``; ``bytes``, the Arrow table's) and
+``writer.parquet`` around the Parquet write and the partition's commit
+(``rows``; ``bytes``, the file's)."""
 
 from __future__ import annotations
 
@@ -15,6 +21,7 @@ import numpy as np
 
 from cuking_tpu_torch.io.uri import Storage
 from cuking_tpu_torch.models.king import ResultSet
+from cuking_tpu_torch.utils.stopwatch import span
 
 
 def result_schema():
@@ -89,16 +96,20 @@ def write_results(
     """Writes one sorted Snappy Parquet partition; returns its URI."""
     import pyarrow.parquet as pq
 
-    table = results_to_table(results, sample_ids)
+    with span("writer.table", rows=len(results)) as built:
+        table = results_to_table(results, sample_ids)
+        built.count(bytes=table.nbytes)
     uri = storage.join(output_uri, partition_name(shard_index))
-    with storage.open_write(uri) as f:
-        pq.write_table(
-            table,
-            f,
-            compression="snappy",
-            row_group_size=max(len(results), 1),
-            use_dictionary=False,
-        )
+    with span("writer.parquet", rows=len(results)) as written:
+        with storage.open_write(uri) as f:
+            pq.write_table(
+                table,
+                f,
+                compression="snappy",
+                row_group_size=max(len(results), 1),
+                use_dictionary=False,
+            )
+            written.count(bytes=f.tell())
     return uri
 
 

@@ -27,13 +27,21 @@ packed planes for one shard, in PyTorch.
   as the JAX engine does.  The host fetches the buffer in one copy and
   sorts by (i, j, kin) (cuking.cu:761-765), which also undoes the atomic
   slot order.
+* Keep-all (``KingConfig.keep_all``, the CLI's ``--keep_all``): every pair
+  i < j of the shard is a row, whatever its kin, as ``hl.king`` gives the
+  whole kinship matrix.  The pairs are known from the ``Submatrix``, so the
+  buffer is made at exactly that many slots (ResourceExhausted up front,
+  naming the value needed, when they pass ``max_results``): the sweep runs
+  once, and copies and waits for no count on the way.
 
 Spans (``utils/stopwatch.py``, recorded while a ``torch.profiler`` records):
-``engine.run`` around ``run()``; inside it ``engine.upload`` (when
+``engine.run`` around ``run()`` (``sweeps``, ``keep_all`` 0 or 1, and
+``slots``, the hit buffer's as allocated); inside it ``engine.upload`` (when
 ``planes_dev`` uploads; ``bytes``), ``engine.schedule`` (``steps``),
 ``engine.steps`` (the step loop, first launch to last; ``steps``), an
 ``engine.limit_wait`` per wait for a count copy, ``engine.count_read``
-(``total``), ``engine.fetch`` (``rows``) and ``engine.sort``.
+(``total``), ``engine.fetch`` (``rows``, and ``bytes`` copied to the host)
+and ``engine.sort``.
 
 Kernels (``KingConfig.kernel``): ``cuda`` (the hand-written count kernel,
 ops/king_cuda.py), ``matmul`` (the plain PyTorch int8 product,
@@ -60,7 +68,11 @@ from cuking_tpu_torch.ops.king_math import KingCounts
 from cuking_tpu_torch.ops.king_mm import panel_counts_matmul
 from cuking_tpu_torch.ops.king_popcount import panel_counts_popcount
 from cuking_tpu_torch.parallel.submatrix import Submatrix
-from cuking_tpu_torch.utils.status import InvalidArgumentError, ResourceExhaustedError
+from cuking_tpu_torch.utils.status import (
+    InvalidArgumentError,
+    ResourceExhaustedError,
+    UnknownError,
+)
 from cuking_tpu_torch.utils.stopwatch import StageLogger, span
 
 DEFAULT_KIN_THRESHOLD = 0.0884  # 2nd degree or closer (cuking.cu:43-45)
@@ -94,6 +106,7 @@ class KingConfig:
     result_capacity: int = 0        # initial result-buffer slots (0 = auto)
     device: str = "cuda"
     verbose: bool = False
+    keep_all: bool = False          # every pair a row, whatever its kin
 
     def resolved_result_capacity(self) -> int:
         """Initial device result-buffer capacity: the explicit knob, else
@@ -336,11 +349,15 @@ class KingEngine:
 
     def run(self) -> ResultSet:
         """Sweeps all (i-panel, j-panel) pairs of the shard and returns the
-        thresholded, sorted results."""
+        thresholded (or, keep-all, every pair's), sorted results."""
         with span("engine.run") as run_span:
             cfg = self.config
             st = self.storage
-            capacity = cfg.resolved_result_capacity()
+            if cfg.keep_all:
+                capacity = keep_all_slots(st.submatrix, cfg.max_results)
+            else:
+                capacity = cfg.resolved_result_capacity()
+            run_span.count(keep_all=int(cfg.keep_all))
             sweeps = 0
             while True:
                 self.logger.begin(
@@ -350,12 +367,17 @@ class KingEngine:
                 )
                 hits = self.sweep(capacity)
                 sweeps += 1
-                run_span.count(sweeps=sweeps)
+                run_span.count(sweeps=sweeps, slots=capacity)
                 with span("engine.count_read") as read:
                     total = int(hits.count)  # the sweep's one read of the device
                     read.count(total=total)
                 self.logger.end()
                 _check_max_results(total, cfg.max_results)
+                if cfg.keep_all and total != st.submatrix.unique_pairs:
+                    raise UnknownError(
+                        f"The keep-all sweep emitted {total} rows for the "
+                        f"shard's {st.submatrix.unique_pairs} pairs."
+                    )
                 if total <= capacity:
                     break
                 # Exact total in (capacity, max_results]: re-run once at the
@@ -371,8 +393,10 @@ class KingEngine:
             self.logger.print(f"Processing {total} results...")
             parts = []
             if total:
-                with span("engine.fetch", rows=total):
-                    parts.append(ResultSet.from_rows(hits.rows(total)))
+                with span("engine.fetch", rows=total) as fetch:
+                    rows = hits.rows(total)
+                    fetch.count(bytes=rows.nbytes)
+                    parts.append(ResultSet.from_rows(rows))
             with span("engine.sort"):
                 return ResultSet.concat_and_sort(parts)
 
@@ -383,8 +407,10 @@ class KingEngine:
         count starts; once more than ``LIMIT_CHECK_WINDOW`` copies are
         pending, the loop waits for the oldest (the only wait for the device
         here; the caller reads the final ``count``) and raises
-        ResourceExhausted when it exceeds ``max_results``."""
+        ResourceExhausted when it exceeds ``max_results``.  A keep-all
+        sweep, whose buffer holds every pair, copies and waits for none."""
         cfg = self.config
+        check = not cfg.keep_all
         planes = self.planes_dev
         hits = HitBuffer(capacity, self.device)
         with span("engine.schedule") as schedule:
@@ -398,14 +424,29 @@ class KingEngine:
                 # skip lower-triangle tiles; the strict i<j mask never reads them.
                 counts = self._counts(planes, i_off, j_off, gi_base == gj_base)
                 emit_hits(counts, hits, gi_base, gj_base, gi_base + ni, gj_base + nj,
-                          cfg.kin_threshold, strict=True, sym=False)
-                if step % LIMIT_CHECK_STEPS == 0:
+                          cfg.kin_threshold, strict=True, sym=False,
+                          keep_all=cfg.keep_all)
+                if check and step % LIMIT_CHECK_STEPS == 0:
                     hits.snapshot()
                     if hits.pending > LIMIT_CHECK_WINDOW:
                         with span("engine.limit_wait", steps):
                             count = hits.wait_oldest()
                         _check_max_results(count, cfg.max_results)
         return hits
+
+
+def keep_all_slots(submatrix: Submatrix, max_results: int) -> int:
+    """The hit buffer's slots for a keep-all sweep of ``submatrix``: its
+    unique pairs (at least 1).  Raises ResourceExhausted, naming the
+    ``--max_results`` needed, when they pass ``max_results``."""
+    pairs = submatrix.unique_pairs
+    if pairs > max_results:
+        raise ResourceExhaustedError(
+            f"--keep_all writes every one of this shard's {pairs} pairs, more "
+            f"than --max_results {max_results}: pass --max_results {pairs} or "
+            "more, or a larger --split_factor."
+        )
+    return max(pairs, 1)
 
 
 def _check_max_results(count: int, max_results: int) -> None:

@@ -166,6 +166,7 @@ def build() -> str:
                 p, i64, i64,       # counts, ni, nj
                 i64, i64, i64, i64,  # gi_base, gj_base, i_limit, j_limit
                 ctypes.c_float, ctypes.c_int, ctypes.c_int,  # threshold, strict, sym
+                ctypes.c_int,      # keep_all
                 p, i64, p, p,      # out, capacity, count, stream
             ]
             _lib = lib

@@ -14,8 +14,10 @@ for the device.  On a CPU tensor it takes the plain version,
 Arguments of both: ``gi_base``/``gj_base`` are the global indices of the
 counters' first row and column; a pair is a candidate when its global
 ``i < i_limit`` and ``j < j_limit`` and, with ``strict``, ``i < j``
-(cuking.cu:199); a hit has ``kin > threshold`` (float32, cuking.cu:297);
-with ``sym`` a hit is written as ``(min(i, j), max(i, j))``.
+(cuking.cu:199); a hit has ``kin > threshold`` (float32, cuking.cu:297),
+or with ``keep_all`` is every candidate, whatever its kin (NaN and ±inf
+included: the whole-matrix export); with ``sym`` a hit is written as
+``(min(i, j), max(i, j))``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ _MAX_PAIRS = (2**31 - 1) * 512
 def emit_hits_plain(
     counts: KingCounts, hits: HitBuffer, gi_base: int, gj_base: int,
     i_limit: int, j_limit: int, threshold: float, strict: bool, sym: bool,
+    keep_all: bool = False,
 ) -> None:
     """The emit kernel's plain version: the fp32 epilogue, the mask,
     ``nonzero`` and a gather of the hits (:func:`compact_hits`), written at
@@ -46,9 +49,9 @@ def emit_hits_plain(
     ni, nj = res.kin.shape
     gi = gi_base + torch.arange(ni, device=res.kin.device)[:, None]
     gj = gj_base + torch.arange(nj, device=res.kin.device)[None, :]
-    mask = (gi < i_limit) & (gj < j_limit) & (
-        res.kin > torch.tensor(threshold, dtype=torch.float32)
-    )
+    mask = (gi < i_limit) & (gj < j_limit)
+    if not keep_all:
+        mask &= res.kin > torch.tensor(threshold, dtype=torch.float32)
     if strict:
         mask &= gi < gj
     rows = compact_hits(mask, gi_base, gj_base, res)
@@ -99,6 +102,7 @@ def _counter_block(counts: KingCounts) -> torch.Tensor:
 def emit_hits(
     counts: KingCounts, hits: HitBuffer, gi_base: int, gj_base: int,
     i_limit: int, j_limit: int, threshold: float, strict: bool, sym: bool,
+    keep_all: bool = False,
 ) -> None:
     """Appends the hits of one counter block to ``hits`` (see the module
     docstring): the emit kernel on a CUDA tensor, the plain version on a
@@ -108,7 +112,7 @@ def emit_hits(
     device = counts.both_het.device
     if device.type == "cpu":
         emit_hits_plain(counts, hits, gi_base, gj_base, i_limit, j_limit,
-                        threshold, strict, sym)
+                        threshold, strict, sym, keep_all)
         return
     if device.type != "cuda":
         raise InvalidArgumentError(
@@ -123,7 +127,7 @@ def emit_hits(
         err = getattr(lib, king_cuda.EMIT_ENTRY)(
             block.data_ptr(), ni, nj, int(gi_base), int(gj_base), int(i_limit),
             int(j_limit), float(np.float32(threshold)), int(bool(strict)),
-            int(bool(sym)), hits.buf.data_ptr(), hits.capacity,
+            int(bool(sym)), int(bool(keep_all)), hits.buf.data_ptr(), hits.capacity,
             hits.count.data_ptr(), stream,
         )
     if err:

@@ -93,6 +93,14 @@ class Submatrix:
         (cuking.cu:159-162)."""
         return self.num_rows if self.is_diagonal else self.num_rows + self.num_cols
 
+    @property
+    def unique_pairs(self) -> int:
+        """The shard's pairs i < j of distinct samples: every pair of a
+        whole-matrix export (``--keep_all``)."""
+        if self.is_diagonal:
+            return self.num_rows * (self.num_rows - 1) // 2
+        return self.num_rows * self.num_cols
+
     def contains(self, index) -> bool:
         """Whether a global sample index belongs to this shard
         (cuking.cu:165-168).  Accepts scalars or numpy arrays."""

@@ -24,6 +24,7 @@ import os
 
 import torch
 
+from cuking_tpu_torch.parallel.submatrix import Submatrix
 from cuking_tpu_torch.utils.status import InvalidArgumentError
 
 # Fraction of the free device memory the sweep may plan to use: the caching
@@ -80,14 +81,18 @@ def shard_plane_bytes(
     return plane_bytes(block, words, panel) + plane_bytes(block, words, panel)
 
 
-def sweep_buffer_bytes(config) -> int:
+def sweep_buffer_bytes(config, pairs: int = 0) -> int:
     """Device bytes for the engine sweep beyond the planes: the [6, capacity]
     int32 result buffer at its worst capacity (max_results, the largest the
-    overflow re-run can ask for; the re-run frees the full buffer first),
-    plus one step's transients (``TRANSIENT_BYTES_PER_PAIR`` per pair of the
+    overflow re-run can ask for; the re-run frees the full buffer first; a
+    keep-all sweep's buffer holds exactly the shard's ``pairs``), plus one
+    step's transients (``TRANSIENT_BYTES_PER_PAIR`` per pair of the
     panel)."""
     per_slot = 6 * 4  # i/j idx i32, kin f32, ibs0/1/2 i32
-    worst_capacity = max(config.resolved_result_capacity(), config.max_results)
+    if config.keep_all:
+        worst_capacity = max(pairs, 1)
+    else:
+        worst_capacity = max(config.resolved_result_capacity(), config.max_results)
     result_buffer = worst_capacity * per_slot
     transients = TRANSIENT_BYTES_PER_PAIR * config.panel * config.panel
     return result_buffer + transients
@@ -118,17 +123,22 @@ def check_engine_fit(
     if limit is None:
         return
     planes_b = engine_plane_bytes(submatrix, words, config.panel)
-    buffers_b = sweep_buffer_bytes(config)
+    buffers_b = sweep_buffer_bytes(config, submatrix.unique_pairs)
     need = planes_b + buffers_b
     if need <= limit:
         return
 
     def worst(k: int) -> int:
-        return shard_plane_bytes(num_samples, k, words, config.panel) + buffers_b
+        # A keep-all buffer holds the worst shard's pairs: the whole
+        # cohort's at k = 1, blocks (0, 1)'s above (shard 1, the largest).
+        pairs = Submatrix.create(num_samples, k, min(k - 1, 1)).unique_pairs
+        return (shard_plane_bytes(num_samples, k, words, config.panel)
+                + sweep_buffer_bytes(config, pairs))
 
-    # Splitting shrinks only the plane term; the result-buffer term is
-    # k-independent.  If not even maximal splitting fits, say so instead of
-    # prescribing a split factor that cannot work.
+    # Splitting shrinks the plane term (and a keep-all buffer); the
+    # thresholded result-buffer term is k-independent.  If not even maximal
+    # splitting fits, say so instead of prescribing a split factor that
+    # cannot work.
     if worst(num_samples) > limit:
         raise InvalidArgumentError(
             f"Shard needs {need >> 20} MiB of device memory but only "

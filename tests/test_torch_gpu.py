@@ -144,9 +144,14 @@ def test_every_card_launches_the_kernel_and_runs_the_ring(cuda_device):
     assert np.array_equal(got.kin.view(np.uint32), ref.kin.view(np.uint32))
 
 
-def _sorted_rows(hits: HitBuffer) -> list:
-    total = int(hits.count)
-    return sorted(map(tuple, hits.rows(total).T.tolist()))
+def _sorted_rows(hits: HitBuffer, nan_as_one: bool = False) -> list:
+    """The buffer's rows, sorted; with ``nan_as_one`` every NaN kin reads as
+    one value (a NaN's bits are the arithmetic's, not KING's)."""
+    rows = hits.rows(int(hits.count))
+    if nan_as_one:
+        rows = rows.copy()
+        rows[2, np.isnan(rows[2].view(np.float32))] = 0x7FC00000
+    return sorted(map(tuple, rows.T.tolist()))
 
 
 TIES = ((2, 20), (3, 25), (4, 28))
@@ -155,7 +160,7 @@ TIES = ((2, 20), (3, 25), (4, 28))
 @pytest.mark.gpu
 @pytest.mark.parametrize("source", ["count kernel", "random counters"])
 @pytest.mark.parametrize("strict,sym", [(True, False), (True, True), (False, True), (False, False)])
-@pytest.mark.parametrize("threshold", ["tie", -2.0])
+@pytest.mark.parametrize("threshold", ["tie", -2.0, "keep all"])
 @pytest.mark.parametrize("capacity", [1 << 20, 777])
 def test_emit_kernel_matches_plain_version(cuda_device, source, strict, sym, threshold,
                                            capacity):
@@ -164,7 +169,8 @@ def test_emit_kernel_matches_plain_version(cuda_device, source, strict, sym, thr
     the kernel keeps ``capacity`` of the plain version's rows.  The counters
     come from the count kernel (a 300 x 450 block of 3,100 sites, limits
     inside it) or are random, with NaN/-inf rows and three pairs whose kin
-    equals the threshold."""
+    equals the threshold.  With ``keep_all`` every candidate is a row, the
+    NaN and -inf ones included (a NaN compared as NaN, not by its bits)."""
     rng = np.random.default_rng(7)
     if source == "count kernel":
         planes = torch.from_numpy(
@@ -176,20 +182,28 @@ def test_emit_kernel_matches_plain_version(cuda_device, source, strict, sym, thr
         counts = KingCounts(*torch.from_numpy(
             random_counters(300, 450, rng, TIES)).to(cuda_device).unbind(0))
         gi, gj, il, jl = 0, 0, 300, 450
+    keep_all = threshold == "keep all"
     if threshold == "tie":
         threshold = float(king_from_counts(counts).kin[TIES[0]])
+    elif keep_all:
+        threshold = 1e9  # not read
     got, ref = HitBuffer(capacity, cuda_device), HitBuffer(1 << 20, cuda_device)
     before = king_emit.emit_launches
-    emit_hits(counts, got, gi, gj, il, jl, threshold, strict, sym)
+    emit_hits(counts, got, gi, gj, il, jl, threshold, strict, sym, keep_all=keep_all)
     assert king_emit.emit_launches == before + 1
-    emit_hits_plain(counts, ref, gi, gj, il, jl, threshold, strict, sym)
+    emit_hits_plain(counts, ref, gi, gj, il, jl, threshold, strict, sym, keep_all=keep_all)
     total = int(got.count)
     assert total == int(ref.count) > 0
-    want = _sorted_rows(ref)
+    want = _sorted_rows(ref, keep_all)
+    if keep_all:
+        li, lj = torch.meshgrid(torch.arange(300) + gi, torch.arange(450) + gj, indexing="ij")
+        assert total == int(((li < il) & (lj < jl) & ((li < lj) if strict else True)).sum())
+        if source == "random counters":
+            assert np.isnan(np.array([r[2] for r in want], np.int32).view(np.float32)).any()
     if total <= capacity:
-        assert _sorted_rows(got) == want
+        assert _sorted_rows(got, keep_all) == want
     else:
-        kept = _sorted_rows(got)
+        kept = _sorted_rows(got, keep_all)
         assert len(kept) == capacity and set(kept) <= set(want)
 
 

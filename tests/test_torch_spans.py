@@ -5,8 +5,9 @@ ingest phases on worker threads and engine spans, each on the clock of the
 exported Chrome trace; the CLI's stdout unchanged by the profiler; the
 ``--profile_dir`` trace of the whole task with ingest's spans added as
 complete events that the trace reader keeps out of device time; every span
-of the port's table recorded with its counts.  The benchmark's readers of
-these spans are tested beside them, in ``kingbench/tests``."""
+of the port's table recorded with its counts; a keep-all task's writer
+spans and engine counts in its ``--profile_dir`` trace.  The benchmark's
+readers of these spans are tested beside them, in ``kingbench/tests``."""
 
 import contextlib
 import gc
@@ -37,9 +38,11 @@ INGEST = ["ingest.read", "ingest.decode", "ingest.filter", "ingest.scatter"]
 TABLE = {
     "cli.task": {"shard_index"}, **{f"stage.{k}": set() for k in STAGES},
     "ingest.read": {"bytes"}, "ingest.decode": {"entries"}, "ingest.filter": {"kept"},
-    "ingest.scatter": set(), "engine.run": {"sweeps"}, "engine.upload": {"bytes"},
-    "engine.schedule": {"steps"}, "engine.steps": {"steps"}, "engine.limit_wait": set(),
-    "engine.count_read": {"total"}, "engine.fetch": {"rows"}, "engine.sort": set(),
+    "ingest.scatter": set(), "engine.run": {"sweeps", "keep_all", "slots"},
+    "engine.upload": {"bytes"}, "engine.schedule": {"steps"}, "engine.steps": {"steps"},
+    "engine.limit_wait": set(), "engine.count_read": {"total"},
+    "engine.fetch": {"rows", "bytes"}, "engine.sort": set(),
+    "writer.table": {"rows", "bytes"}, "writer.parquet": {"rows", "bytes"},
 }
 
 
@@ -223,10 +226,12 @@ def test_the_engine_records_its_upload_and_step_loop(traced_task):
     (schedule,) = named(spans, "engine.schedule")
     assert loop.counts == schedule.counts == {"steps": steps} and steps > 1
     (run,) = named(spans, "engine.run")
-    assert run.counts == {"sweeps": 1}
+    assert run.counts == {"keep_all": 0, "sweeps": 1,
+                          "slots": KingConfig().resolved_result_capacity()}
     (read,) = named(spans, "engine.count_read")
     (fetch,) = named(spans, "engine.fetch")
     assert read.counts["total"] == fetch.counts["rows"] > 0
+    assert fetch.counts["bytes"] == 24 * fetch.counts["rows"]
     assert len(named(spans, "engine.sort")) == 1
     assert run.start_ns <= upload.start_ns <= loop.start_ns <= read.start_ns <= run.end_ns
 
@@ -314,6 +319,39 @@ def test_profile_dir_traces_the_whole_task_with_ingest_spans(input_dir, tmp_path
         assert e["args"]["root"] == task["args"]["id"]
     device, _, _ = trace.read(path)
     assert device == []
+
+
+def test_a_keep_all_trace_holds_the_writer_spans_and_the_buffer(input_dir, tmp_path):
+    """``--keep_all --profile_dir``: the writer's two spans inside the write
+    stage, with the partition's rows and their bytes, and the engine's
+    keep-all counts, as ``cuking_span`` events of the task's trace."""
+    traces = tmp_path / "traces"
+    args = argv(input_dir, str(tmp_path / "out"), "--profile_dir", str(traces))
+    k = args.index("--kin_threshold")
+    del args[k:k + 2]
+    stopwatch.clear()
+    run_cli(args + ["--keep_all"], False)
+    stopwatch.clear()
+    with open(traces / "trace-part-00000.json") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == stopwatch.CHROME_CAT]
+    by_name = {e["name"]: e for e in events}
+    half = SAMPLES // 2
+    pairs = half * (half - 1) // 2  # split 2 shard 0: block (0, 0)
+    assert by_name["engine.run"]["args"]["keep_all"] == 1
+    assert by_name["engine.run"]["args"]["slots"] == pairs
+    assert by_name["engine.run"]["args"]["sweeps"] == 1
+    assert by_name["engine.fetch"]["args"]["bytes"] == 24 * pairs
+    stage = by_name["stage.write"]
+    table, parquet = by_name["writer.table"], by_name["writer.parquet"]
+    assert table["args"]["rows"] == parquet["args"]["rows"] == pairs
+    assert table["args"]["bytes"] > 16 * pairs
+    assert parquet["args"]["bytes"] == os.path.getsize(
+        tmp_path / "out" / "part-00000.snappy.parquet")
+    for e in (table, parquet):
+        assert e["args"]["parent"] == stage["args"]["id"]
+        assert stage["ts"] <= e["ts"] <= e["ts"] + e["dur"] <= stage["ts"] + stage["dur"] + 1e-3
+    assert table["ts"] + table["dur"] <= parquet["ts"]
 
 
 def write_trace(path: str, text: str) -> str:
