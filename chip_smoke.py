@@ -29,13 +29,21 @@ Phases (any failure exits nonzero):
    1000 x 1000 ``tri`` pair on the diagonal (neither side a multiple of the
    128 x 64 tile), the UK Biobank step (2,924 words, off the diagonal and
    ``tri``) and panels whose last rows are the storage's last (the tile
-   reads past the storage's end).  Then CUDA-event times at the engine's
+   reads past the storage's end), and the roles of the kernel's 2-CTA
+   clusters: three i tiles (one helper CTA a column), a single i tile of
+   100 and of 128 rows (a helper beside every computing CTA), 129 rows (a
+   second tile of one row, also ``tri``), 300 ``tri`` rows at 2,924 words.
+   Then CUDA-event times at the engine's
    shape (1024 x 1024 pairs, off the diagonal and ``tri``) at 100,000 sites,
    at 2,924 words (93,511 sites) and at 1,000,000 sites: the kernel, the AND +
    popcount kernel (``prev_ms``), one ``torch._int_mm`` of the stacked
    9-block indicators (``library_ms``), the two ``torch._int_mm`` calls of
    the five products, the kernel's own operations (``library_five_ms``),
-   the plain version, and the bound computed from the shapes.
+   the plain version, and the bound computed from the shapes; the phase's
+   CTAs by role as the host's rule counts them for the shapes launched
+   (``king_cuda.shared_unpack_ctas``, ``helper_ctas``: printed, not
+   measured), and the clusters the card holds at once
+   (``max_active_clusters``: a 1024 x 1024 step is one wave at >= 64).
 2b. The emit kernel against its plain version on the card, on the same
    counters, fields and count: the count kernel's counters at 1024 x 1024
    (off the diagonal; a ``tri`` diagonal pair; limits inside the block),
@@ -420,6 +428,7 @@ def check_oracle_pairs(counts, planes_i, i_off: int, planes_j, j_off: int, layou
 def phase_kernel(card: str) -> dict:
     import torch
 
+    from cuking_tpu_torch.ops import king_cuda
     from cuking_tpu_torch.ops.bitset import PlaneLayout
     from cuking_tpu_torch.ops.king_cuda import (
         five_block_indicators,
@@ -485,8 +494,21 @@ def phase_kernel(card: str) -> dict:
          "ukb", 0, 1024, "ukb", 0, 1024, 1, False, range(6)),
         ("last rows at the storage's end: i 3096+1000, j 3396+700 of 4096 rows",
          "store", 3096, 1000, "store", 3396, 700, 0, False, ()),
+        ("three i tiles, one helper CTA a column: 300x1024 at 2,924 words, edge rows",
+         "ukb", 0, 300, "ukb", 1024, 1024, 0, False, range(6)),
+        ("a single i tile of 100 rows, a helper beside each CTA: 100x1024",
+         "store", 900, 100, "pj", 0, 1024, 0, False, ()),
+        ("a single whole i tile: 128x300, edge rows", "edge", 0, 128, "edge", 0, 300, 0,
+         False, range(6)),
+        ("129 i rows, a second tile of one row: 129x1024", "store", 3967, 129, "store",
+         0, 1024, 0, False, ()),
+        ("129 rows tri=1 on the diagonal", "store", 129, 129, "store", 129, 129, 1,
+         False, ()),
+        ("300 rows tri=1 at 2,924 words: diagonal clusters of one computing CTA",
+         "ukb", 0, 300, "ukb", 0, 300, 1, False, range(6)),
     ]
     max_err = 0
+    before = (king_cuda.shared_unpack_ctas, king_cuda.helper_ctas)
     for name, si, i_off, ni, sj, j_off, nj, tri, sliced, edge_rows in cases:
         (pi, pi_np, lay), (pjc, pj_np_c, _) = stores[si], stores[sj]
         a, b = pi[:, i_off:i_off + ni], pjc[:, j_off:j_off + nj]
@@ -521,6 +543,13 @@ def phase_kernel(card: str) -> dict:
         check_oracle_pairs(got, pi_np, i_off, pj_np_c, j_off, lay, pairs, name)
         say(f"phase 2: {name}: six counters equal the five-block and 9-block plain "
             f"versions (kernel and AND+popc kernel) and {len(pairs)} oracle pairs")
+    roles = [king_cuda.shared_unpack_ctas - before[0], king_cuda.helper_ctas - before[1]]
+    clusters = king_cuda.max_active_clusters()
+    say(f"phase 2: by the host's rule (cluster_roles) the {len(cases)} launches hold "
+        f"{roles[0]} computing CTAs (half of each j tile unpacked by the peer) and "
+        f"{roles[1]} helper CTAs; the card holds {clusters} 2-CTA clusters at once "
+        f"(a 1024x1024 step is 64) ({card})")
+    before = (king_cuda.launches, king_cuda.shared_unpack_ctas, king_cuda.helper_ctas)
 
     def timings(planes, words: int, iters: int) -> dict:
         """CUDA-event times at the engine's shape: an off-diagonal 1024 x 1024
@@ -577,7 +606,13 @@ def phase_kernel(card: str) -> dict:
         f"{t1m['prev_ms']:.3f} ms, torch._int_mm 9-block "
         f"{t1m['library_ms']:.3f} ms, five products {t1m['library_five_ms']:.3f} ms, plain version {t1m['plain_ms']:.3f} ms, bound "
         f"{t1m['bound_ms']:.3f} ms ({card})")
-    return {"max_abs_err": max_err, **t100k, "at_2924_words": tukb, "at_1m_sites": t1m}
+    timed = [now - was for now, was in zip(
+        (king_cuda.launches, king_cuda.shared_unpack_ctas, king_cuda.helper_ctas), before)]
+    say(f"phase 2: by the host's rule, the timed launches ({timed[0]}) hold "
+        f"{timed[1]} computing and {timed[2]} helper CTAs "
+        f"({100 * timed[2] / max(1, timed[1] + timed[2]):.3f}% of their CTAs) ({card})")
+    return {"max_abs_err": max_err, **t100k, "at_2924_words": tukb, "at_1m_sites": t1m,
+            "max_active_clusters": clusters}
 
 
 def _sorted_rows(rows: np.ndarray) -> np.ndarray:

@@ -1,14 +1,16 @@
 // KING counters for one (i-panel, j-panel) pair on Hopper (sm_90a): an int8
 // tensor-core (wgmma) kernel that unpacks the packed het/hom words on chip,
-// with its warpgroups specialised: one loads and unpacks, two multiply.
+// with its warpgroups specialised (one loads and unpacks, two multiply) and
+// its CTAs paired in clusters that share the unpacked j rows.
 //
 // Replaces: cuking_tpu/ops/king_pallas.py `_king_body`, reached through
 // `panel_counts_pallas` (sliced panels) and `_panel_counts_pallas_indexed`
 // (row offsets into the full storage).  Both entries of the port
 // (cuking_tpu_torch/ops/king_cuda.py) call `king_counts_launch` with a base
-// pointer and a row offset per side.  Its earlier body, in which all eight
+// pointer and a row offset per side.  Its first body, in which all eight
 // warps loaded, unpacked B, built A and issued the products in turn around a
-// CTA barrier every four words, ran at ~49% of the bound below.
+// CTA barrier every four words, ran at ~49% of the bound below; the
+// warp-specialised one CTA at a time, at ~73%.
 //
 // What it computes.  Planes are [2, rows, W] 32-bit words (plane 0 = het,
 // plane 1 = hom; (1,1) = missing).  Per site, with het bit e and hom bit o:
@@ -29,10 +31,10 @@
 // 1,979 dense int8 TOP/s.  The bytes are no limit: 51 MB of planes in and
 // 25 MB of counters out take 0.023 ms at 3.35 TB/s.  So the tensor cores
 // bound it: a CTA's 128 x 64 x 5 products of one word are 320 of their
-// clocks.  Beside them run the unpack (integer work, about half as many
-// clocks of the integer pipe), the loads, and shared memory's traffic, of
-// which the tensor cores' own reads of B take half at their full rate.  The
-// design keeps all of that off the warps that issue the products:
+// clocks.  Beside them run the unpack (integer work), the loads, and shared
+// memory's traffic, of which the tensor cores' own reads of B take half at
+// their full rate.  The design keeps all of that off the warps that issue
+// the products, and shares the unpack between two CTAs:
 //
 // * The unpacked indicators never touch device memory.  A k32 step is one
 //   32-bit word.  K bytes 4c..4c+3 of a word come from bits c, c+8, c+16,
@@ -44,17 +46,31 @@
 //   wave on 132 SMs at one CTA per SM.  Taller tiles would leave more SMs
 //   idle (192 rows: 96 CTAs, 73% of the SMs); a wider one would need more
 //   than the 160 accumulators a thread holds for 64 columns.  Its 384
-//   threads are three warpgroups:
-// * The producer warpgroup (24 registers after `setmaxnreg.dec`).  One of
-//   its threads keeps an 8-stage ring of packed 4-word row slices loading as
-//   two tensor-map boxes a stage (the maps are encoded on the host once per
-//   storage and kept), each completing on its stage's mbarrier; W need only
-//   be a multiple of 4, so no K tail exists, and the stage 4 ahead is loaded
-//   once a stage is unpacked.  All 128 unpack B (the j rows) into a 4-stage
-//   ring of K-major core matrices (8 rows x 16 bytes, no swizzle:
-//   [word][H, v, u][8-row block][K half][row]), lane l taking word l / 8 of
-//   its rows so that a warp's reads hit 32 banks and its stores fill whole
-//   128-byte runs, and hand each stage over on a "B full" mbarrier.
+//   threads are three warpgroups.
+// * Clusters of two CTAs along i (blockIdx.y 2k and 2k + 1, the grid's i
+//   tiles rounded up to whole clusters) share blockIdx.x and so the j tile.
+//   Each CTA loads and unpacks only its half of the j rows (rank r: rows
+//   32r..32r+31) and hands it to the other, so a product needs half the
+//   unpack it did with one CTA per tile; both CTAs multiply the whole tile.
+//   The card holds 66 such clusters at once, so a step stays one wave.
+// * The producer warpgroup (24 registers after `setmaxnreg.dec`) keeps an
+//   8-stage ring of packed 4-word row slices loading as two tensor-map boxes
+//   a stage (its 128 i rows, its 32 j rows; the maps are encoded on the host
+//   once per storage and box and kept), each completing on its stage's
+//   mbarrier; W need only be a multiple of 4, so no K tail exists, and the
+//   stage 4 ahead is loaded once a stage is unpacked, by the warps in turn.  Warp w unpacks word w of the 32 rows into a 4-stage ring of B
+//   (K-major core matrices, 8 rows x 16 bytes, no swizzle), then hands its
+//   3 KB to the peer CTA's same stage with one bulk copy
+//   (`cp.async.bulk` shared::cta -> shared::cluster), which completes on the
+//   peer's "B full".  The copy keeps the remote stores off the 24-register
+//   threads; one thread issuing all 12 KB of a stage, or every producer
+//   thread storing into the peer, ran at half the speed.
+// * B's layout makes a CTA's half of a word one contiguous run: a word is
+//   16 slots of 384 bytes, slot n holding block n of the [H_j; v_j] operand
+//   (8 rows, both K halves; the blocks run H of rows 0-31, v of 0-31, H of
+//   32-63, v of 32-63, and the epilogue reads the columns in that order)
+//   and, in its last 128 bytes, K half n % 2 of u_j's block n / 2.  Rank r's
+//   rows fill slots 8r..8r+7; the descriptors take strides of 384 and 768.
 // * Two consumer warpgroups (240 registers after `setmaxnreg.inc`) own 64
 //   i-rows each and do nothing but build A and issue.  A stays in registers
 //   (wgmma's RS form): in the k32 s8 fragment, thread t of a quad holds K
@@ -69,12 +85,33 @@
 //   A is built; with fewer than 240 registers ptxas serialises the groups.
 // * No CTA barrier inside the K loop.  Every hand-over is an mbarrier with
 //   phase bits: "packed full" (the boxes landed), "packed empty" (every warp
-//   has read the stage), "B full" (the unpack, behind a proxy fence) and
-//   "B empty" (the groups that read the stage have retired).
+//   has read the stage), "B full" (this CTA's 4 producer warps, behind a
+//   proxy fence, and the peer's 12 KB of the stage) and "B empty" (the
+//   groups that read the stage have retired, in both CTAs: each consumer
+//   warp arrives on its own CTA's and on the peer's).  A producer overwrites
+//   its half of a stage, here and in the peer, only once both CTAs' groups
+//   have retired it, which also means that its copy out of it has landed.
+//   The arrivals and waits are CTA-scope, as a cluster pipeline's consumer
+//   releases are: cluster-scope ones on every stage ran ~25% slower.
+// * Roles by shape, decided in the kernel from (i0, ni, nj, tri) as
+//   king_cuda.cluster_roles counts them on the host: a CTA whose tile holds
+//   no pair to compute (one past ni, or with `tri` every pair i >= j) still
+//   runs its producer for a computing peer, while its consumers issue
+//   nothing and store nothing; a cluster with no pair to compute exits at
+//   once and leaves its outputs unwritten (with `tri` callers mask by i < j).
+//   Every other thread ends on a cluster barrier, so that no CTA leaves
+//   while its peer may still copy into it or arrive on its barriers.
 // * The epilogue writes two neighbouring pairs' counters as one 8-byte store
 //   (when nj is even), so a warp's stores fill whole sectors.
-// * With `tri` set (a diagonal panel pair), CTAs whose every pair has i >= j
-//   exit at once and leave their outputs unwritten; callers mask by i < j.
+//
+// What bounds it now (an H100 80GB HBM3 at 700 W): a 1024 x 1024 pair at
+// 1,000,000 sites takes ~6.3 ms against the bound's 5.30 (one CTA a tile:
+// 7.3 ms); the same kernel with no hand-over copy (not exact) read ~4.5%
+// less, so the copy's issue and its shared-memory traffic, the coupling of
+// the two CTAs' pipelines and the consumers' A build share what is left.
+// The card's power is the next wall: the kernel draws ~690 W, and a hot
+// card cuts its SM clock from 1,980 to ~1,830 MHz (sw_power_cap,
+// sw_thermal_slowdown).
 //
 // `king_counts_popc_launch` keeps the same contract through the first port's
 // AND + popcount kernel: the yardstick the wgmma kernel is timed against.
@@ -180,6 +217,41 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// ---------------------------------------------------------------------------
+// The cluster: the other CTA's shared memory and the cluster barrier.
+
+// The address of `p` (this CTA's shared memory) in the shared memory of the
+// cluster's CTA `rank`, as the .shared::cluster instructions take it.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+// Arrives on a barrier of the cluster's other CTA (`bar` from peer_addr), with
+// the default CTA-scope release: the arrival only says that this CTA's groups
+// have retired their reads of a stage (the header says why not cluster scope).
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Copies `bytes` of this CTA's shared memory into the other CTA's (`dst` from
+// peer_addr), completing on its barrier `bar` (from peer_addr).
+__device__ __forceinline__ void copy_to_peer(uint32_t dst, const void* src, uint32_t bytes,
+                                             uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// Every thread of both CTAs: what each did before arrive is seen by all after
+// wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void regs_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -193,10 +265,10 @@ __device__ __forceinline__ void regs_alloc() {
 // wgmma.
 
 // Shared-memory matrix descriptor: K-major, no swizzle, core matrices 8 rows
-// x 16 bytes; LBO 128 bytes (next K half), SBO 256 bytes (next 8 rows).
-__device__ __forceinline__ uint64_t b_desc(const uint8_t* p) {
-  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)(128 >> 4) << 16) |
-         ((uint64_t)(256 >> 4) << 32);
+// x 16 bytes; `lbo` bytes to the next K half, `sbo` to the next 8 rows.
+__device__ __forceinline__ uint64_t b_desc(const uint8_t* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -259,6 +331,8 @@ __device__ __forceinline__ void wgmma_n64(int (&d)[32], const uint32_t (&a)[4],
 // The wgmma kernel (the main path).
 
 constexpr int kWgBM = 128, kWgBN = 64;               // pair tile: i-rows x j-rows
+constexpr int kCluster = 2;                          // CTAs along i sharing one j tile
+constexpr int kWgBHalf = kWgBN / kCluster;           // j rows a CTA loads and unpacks
 constexpr int kConsumers = 2;                        // warpgroups that issue, 64 i-rows each
 constexpr int kWgThreads = 128 * (kConsumers + 1);   // and the producer warpgroup
 constexpr int kPackedStages = 8;                     // packed-word ring
@@ -271,14 +345,25 @@ constexpr int kLaunchRegs = 65536 / kWgThreads / 8 * 8;
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 static_assert(kProducerRegs * 128 + kConsumerRegs * 128 * kConsumers <= kLaunchRegs * kWgThreads,
               "more registers than the CTA's pool");
-constexpr int kWgBWord = 3 * kWgBN * 32;             // bytes of B per word
+// B of one word is 16 slots of 384 bytes.  Slot n holds block n of the
+// [H_j; v_j] operand (an 8-row core matrix pair, both K halves: 256 bytes)
+// and, in its last 128 bytes, K half n % 2 of block n / 2 of u_j.  The
+// [H_j; v_j] blocks run H of the half-rows 0-31, v of 0-31, H of 32-63, v of
+// 32-63, so the 8 slots of a CTA's half hold all of its H, v and u rows: one
+// contiguous run of 3 KB a word, which is what a producer warp hands over.
+constexpr int kSlot = 384;
+constexpr int kWgBWord = 16 * kSlot;                 // bytes of B per word
 constexpr int kWgBStage = kStageWords * kWgBWord;    // per stage
+constexpr int kWgBRun = kWgBWord / kCluster;         // a CTA's half of a word
+static_assert(kWgBN == 64 && kCluster == 2, "the slot layout is for 64 j rows in halves of 32");
+static_assert(kStageWords == 4, "a stage is one word for each producer warp");
 
 // One stage of packed words: kStageWords words of each of the tile's i-rows
-// and j-rows, per plane, as the two tensor-map boxes land.
+// and of this CTA's half of its j-rows, per plane, as the two tensor-map
+// boxes land.
 struct WgPacked {
   uint4 i[2][kWgBM];
-  uint4 j[2][kWgBN];
+  uint4 j[2][kWgBHalf];
 };
 
 struct WgShared {
@@ -286,20 +371,22 @@ struct WgShared {
   WgPacked packed[kPackedStages];
   uint64_t packed_full[kPackedStages];   // the stage's two boxes landed
   uint64_t packed_empty[kPackedStages];  // every warp has read the stage (12 warps)
-  uint64_t b_full[kBStages];             // B unpacked (4 producer warps)
-  uint64_t b_empty[kBStages];            // its groups retired (8 consumer warps)
+  uint64_t b_full[kBStages];             // this CTA's half unpacked (4 producer warps), the
+                                         // peer's half landed (their 4 copies' bytes)
+  uint64_t b_empty[kBStages];            // both CTAs' groups that read the stage retired
 };
 constexpr int kWgSmem = (int)sizeof(WgShared);
 static_assert(kWgSmem <= 227 * 1024, "over the shared memory a block can have");
 
-// The producer warpgroup: loads every stage and unpacks its j rows into B.
-// Its first thread loads a stage as two tensor-map boxes (4 words x 128
-// i-rows x 2 planes, 4 words x 64 j-rows x 2 planes); rows past the storage
-// read as zeros, rows past the panel as whatever the storage holds there, and
-// no pair of either is stored.
+// The producer warpgroup: loads every stage, unpacks its half of the j rows
+// into B and hands that half to the cluster's other CTA.  A stage loads as
+// two tensor-map boxes (4 words x 128 i-rows x 2 planes, 4 words x 32 j-rows
+// x 2 planes), issued by one lane; rows past the storage read as zeros, rows
+// past the panel as whatever the storage holds there, and no pair of either
+// is stored.
 __device__ __forceinline__ void wg_produce(WgShared& sm, const CUtensorMap* map_i,
                                            const CUtensorMap* map_j, int i_row0, int j_row0,
-                                           int steps, int ptid) {
+                                           int steps, int rank, int ptid) {
   auto load = [&](int s) {
     const int slot = s % kPackedStages;
     if (s >= kPackedStages) mbar_wait(&sm.packed_empty[slot], ((s / kPackedStages) - 1) & 1);
@@ -310,39 +397,46 @@ __device__ __forceinline__ void wg_produce(WgShared& sm, const CUtensorMap* map_
   if (ptid == 0)
     for (int s = 0; s < steps && s < kLoadAhead; ++s) load(s);
 
-  // Lane l of producer warp pw unpacks word l / 8 of rows (2 pw + b) * 8 +
-  // l % 8, b = 0, 1, both K halves: a warp's reads of the packed stage hit 32
-  // banks, and each 8 lanes of a store write one 128-byte run of core matrices.
-  const int lane = ptid % 32, pw = ptid / 32;
-  const int w = lane / 8, row_lo = lane % 8;
-  const int b_off = w * kWgBWord + 2 * pw * 256 + row_lo * 16;
+  // Producer warp w unpacks word w of the CTA's 32 half-rows, lane l taking
+  // half-row l (both K halves): each 8 lanes of a store write one 128-byte
+  // run of a core matrix pair.  Its 3 KB of B then go to the peer's same
+  // stage as one bulk copy, completing on the peer's "B full", with no
+  // barrier across the warpgroup.
+  const int lane = ptid % 32, w = ptid / 32;
+  const int hv_off = w * kWgBWord + (8 * rank + lane / 8) * kSlot + (lane % 8) * 16;
+  const int u_off = w * kWgBWord + 2 * (4 * rank + lane / 8) * kSlot + 256 + (lane % 8) * 16;
   for (int s = 0; s < steps; ++s) {
     const int slot = s % kPackedStages, bslot = s % kBStages;
     mbar_wait(&sm.packed_full[slot], (s / kPackedStages) & 1);
+    // Both CTAs' groups have retired the stage: this CTA's half may be
+    // overwritten here and in the peer.
     if (s >= kBStages) mbar_wait(&sm.b_empty[bslot], ((s / kBStages) - 1) & 1);
+    const uint32_t het = reinterpret_cast<const uint32_t*>(&sm.packed[slot].j[0][lane])[w];
+    const uint32_t hom = reinterpret_cast<const uint32_t*>(&sm.packed[slot].j[1][lane])[w];
 #pragma unroll
-    for (int b = 0; b < 2; ++b) {
-      const int row = (2 * pw + b) * 8 + row_lo;
-      const uint32_t het = reinterpret_cast<const uint32_t*>(&sm.packed[slot].j[0][row])[w];
-      const uint32_t hom = reinterpret_cast<const uint32_t*>(&sm.packed[slot].j[1][row])[w];
+    for (int kh = 0; kh < 2; ++kh) {
+      uint32_t h[4], v[4], u[4];
 #pragma unroll
-      for (int kh = 0; kh < 2; ++kh) {
-        uint32_t h[4], v[4], u[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) indicators(het, hom, 4 * kh + c, h[c], v[c], u[c]);
-        uint8_t* base = sm.b[bslot] + b_off + b * 256 + kh * 128;
-        *reinterpret_cast<uint4*>(base) = make_uint4(h[0], h[1], h[2], h[3]);
-        *reinterpret_cast<uint4*>(base + 2048) = make_uint4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<uint4*>(base + 4096) = make_uint4(u[0], u[1], u[2], u[3]);
-      }
+      for (int c = 0; c < 4; ++c) indicators(het, hom, 4 * kh + c, h[c], v[c], u[c]);
+      uint8_t* hv = sm.b[bslot] + hv_off + kh * 128;
+      *reinterpret_cast<uint4*>(hv) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(hv + 4 * kSlot) = make_uint4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<uint4*>(sm.b[bslot] + u_off + kh * kSlot) =
+          make_uint4(u[0], u[1], u[2], u[3]);
     }
-    fence_proxy_async();  // the writes, to wgmma's async proxy
+    fence_proxy_async();  // the writes, to wgmma's and the bulk copy's async proxy
     __syncwarp();
     if (lane == 0) {
-      mbar_arrive(&sm.b_full[bslot]);
+      const uint8_t* run = sm.b[bslot] + w * kWgBWord + rank * kWgBRun;
+      const uint32_t peer = rank ^ 1;
+      copy_to_peer(peer_addr(run, peer), run, kWgBRun, peer_addr(&sm.b_full[bslot], peer));
+      // This CTA's "B full" also waits for the peer's copy of the word.
+      mbar_arrive_expect(&sm.b_full[bslot], kWgBRun);
       mbar_arrive(&sm.packed_empty[slot]);
+      // The loads go round the four warps, so that no warp carries a load
+      // beside its copy on every stage (~6% of the kernel when warp 0 did).
+      if (w == s % kStageWords && s + kLoadAhead < steps) load(s + kLoadAhead);
     }
-    if (ptid == 0 && s + kLoadAhead < steps) load(s + kLoadAhead);
   }
 }
 
@@ -377,21 +471,27 @@ __device__ __forceinline__ void wg_issue(int (&acc_h)[64], int (&acc_v)[64],
   fence_operands(acc_v);
   fence_operands(acc_u);
   wgmma_fence();
-  wgmma_n128(acc_h, a[0], b_desc(b));
-  wgmma_n128(acc_v, a[1], b_desc(b));
-  wgmma_n64(acc_u, a[2], b_desc(b + 4096));
+  wgmma_n128(acc_h, a[0], b_desc(b, 128, kSlot));
+  wgmma_n128(acc_v, a[1], b_desc(b, 128, kSlot));
+  wgmma_n64(acc_u, a[2], b_desc(b + 256, kSlot, 2 * kSlot));
   wgmma_commit();
   fence_operands(acc_h);
   fence_operands(acc_v);
   fence_operands(acc_u);
 }
 
+// A consumer warp's release of a B stage, to both CTAs' "B empty".
+__device__ __forceinline__ void wg_release_b(WgShared& sm, int bslot, uint32_t peer) {
+  mbar_arrive(&sm.b_empty[bslot]);
+  mbar_arrive_peer(peer_addr(&sm.b_empty[bslot], peer));
+}
+
 // One stage of a consumer warpgroup: per word, build A into set
 // (4 * k + w) % kASets, issue, and leave kASets - 1 groups in flight.
 template <int k>
 __device__ __forceinline__ void wg_consume_stage(WgShared& sm, int s, int r0, int r1, int t,
-                                                 int lane, int (&acc_h)[64], int (&acc_v)[64],
-                                                 int (&acc_u)[32],
+                                                 int lane, uint32_t peer, int (&acc_h)[64],
+                                                 int (&acc_v)[64], int (&acc_u)[32],
                                                  uint32_t (&a)[kASets][3][4]) {
   const int slot = s % kPackedStages, bslot = s % kBStages;
   mbar_wait(&sm.packed_full[slot], (s / kPackedStages) & 1);
@@ -413,21 +513,34 @@ __device__ __forceinline__ void wg_consume_stage(WgShared& sm, int s, int r0, in
     wg_issue(acc_h, acc_v, acc_u, x, sm.b[bslot] + w * kWgBWord);
     wgmma_wait<kASets - 1>();
     // Once word 1's wait returns, the groups of the stage before have retired.
-    if (w == 1 && s > 0 && lane == 0) mbar_arrive(&sm.b_empty[(s - 1) % kBStages]);
+    if (w == 1 && s > 0 && lane == 0) wg_release_b(sm, (s - 1) % kBStages, peer);
   }
 }
 
-__global__ void __launch_bounds__(kWgThreads, 1)
+// A CTA of a 2-CTA cluster along i: CTA ranks 0 and 1 (blockIdx.y even and
+// odd) share blockIdx.x and so the j tile.  Each loads and unpacks its half
+// of the tile's B and hands it to the other; both multiply the whole of it.
+// A CTA whose tile holds no pair to compute (one past ni, once the grid is
+// rounded up to whole clusters, or, with `tri`, every pair i >= j) still
+// runs its producer for its peer, its consumers issuing nothing; a cluster
+// with no pair to compute exits at once.
+__global__ void __cluster_dims__(1, kCluster, 1) __launch_bounds__(kWgThreads, 1)
 king_counts_wgmma_kernel(const __grid_constant__ CUtensorMap map_i, long long i_off,
                          long long ni, const __grid_constant__ CUtensorMap map_j,
                          long long j_off, long long nj, long long words, int tri,
                          int32_t* __restrict__ out) {
   const long long i0 = (long long)blockIdx.y * kWgBM, j0 = (long long)blockIdx.x * kWgBN;
-  if (tri && i0 >= j0 + kWgBN - 1) return;  // every pair of the tile has i >= j
+  const long long peer_i0 = (long long)(blockIdx.y ^ 1) * kWgBM;
+  // The same rule as king_cuda.cluster_roles on the host.
+  auto computes = [&](long long ti0) { return ti0 < ni && !(tri && ti0 >= j0 + kWgBN - 1); };
+  const bool computing = computes(i0);
+  if (!computing && !computes(peer_i0)) return;  // both CTAs of the cluster
 
   extern __shared__ __align__(128) uint8_t smem[];
   WgShared& sm = *reinterpret_cast<WgShared*>(smem);
   const int tid = threadIdx.x;
+  const int rank = blockIdx.y & 1;
+  const uint32_t peer = rank ^ 1;
   const int steps = (int)(words / kStageWords);
   if (tid == 0) {
     for (int k = 0; k < kPackedStages; ++k) {
@@ -436,68 +549,97 @@ king_counts_wgmma_kernel(const __grid_constant__ CUtensorMap map_i, long long i_
     }
     for (int k = 0; k < kBStages; ++k) {
       mbar_init(&sm.b_full[k], 4);
-      mbar_init(&sm.b_empty[k], 4 * kConsumers);
+      mbar_init(&sm.b_empty[k], 4 * kConsumers * kCluster);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  // Both CTAs' barriers are initialised before either CTA touches the other's.
+  cluster_arrive();
+  cluster_wait();
 
   const int wg = tid / 128;
   if (wg == kConsumers) {
     regs_dealloc<kProducerRegs>();
-    wg_produce(sm, &map_i, &map_j, (int)(i_off + i0), (int)(j_off + j0), steps,
-               tid - 128 * kConsumers);
-  } else {
-    regs_alloc<kConsumerRegs>();
-    const int lane = tid & 31, q = (tid >> 5) & 3;  // warp within the warpgroup
-    const int g = lane >> 2, t = lane & 3;          // fragment row group, thread in quad
-    const int r0 = 64 * wg + 16 * q + g, r1 = r0 + 8;
-    int acc_h[64] = {}, acc_v[64] = {}, acc_u[32] = {};  // HH|Hv, vH|vv, uu
-    uint32_t a[kASets][3][4];
-    // kASets stages per trip, so that each word's register set is fixed.
-    static_assert(kASets == 3, "one call per stage of a trip");
-    for (int s = 0; s < steps; s += kASets) {
-      wg_consume_stage<0>(sm, s, r0, r1, t, lane, acc_h, acc_v, acc_u, a);
-      if (s + 1 < steps)
-        wg_consume_stage<1>(sm, s + 1, r0, r1, t, lane, acc_h, acc_v, acc_u, a);
-      if (s + 2 < steps)
-        wg_consume_stage<2>(sm, s + 2, r0, r1, t, lane, acc_h, acc_v, acc_u, a);
+    // A helper loads its peer's i rows (which lie inside the storage) and
+    // reads none of them.
+    wg_produce(sm, &map_i, &map_j, (int)(i_off + (computing ? i0 : peer_i0)),
+               (int)(j_off + j0 + kWgBHalf * rank), steps, rank, tid - 128 * kConsumers);
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+  regs_alloc<kConsumerRegs>();
+  const int lane = tid & 31;
+  if (!computing) {
+    // A helper's consumers keep the hand-overs of both CTAs in step: each
+    // stage is read (nothing) and released as the computing peer's are.
+    for (int s = 0; s < steps; ++s) {
+      const int slot = s % kPackedStages, bslot = s % kBStages;
+      mbar_wait(&sm.packed_full[slot], (s / kPackedStages) & 1);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.packed_empty[slot]);
+      mbar_wait(&sm.b_full[bslot], (s / kBStages) & 1);
+      __syncwarp();
+      if (lane == 0) wg_release_b(sm, bslot, peer);
     }
-    wgmma_wait<0>();
-    fence_operands(acc_h);
-    fence_operands(acc_v);
-    fence_operands(acc_u);
+    cluster_arrive();
+    cluster_wait();
+    return;
+  }
+  const int q = (tid >> 5) & 3;                   // warp within the warpgroup
+  const int g = lane >> 2, t = lane & 3;          // fragment row group, thread in quad
+  const int r0 = 64 * wg + 16 * q + g, r1 = r0 + 8;
+  int acc_h[64] = {}, acc_v[64] = {}, acc_u[32] = {};  // HH|Hv, vH|vv, uu
+  uint32_t a[kASets][3][4];
+  // kASets stages per trip, so that each word's register set is fixed.
+  static_assert(kASets == 3, "one call per stage of a trip");
+  for (int s = 0; s < steps; s += kASets) {
+    wg_consume_stage<0>(sm, s, r0, r1, t, lane, peer, acc_h, acc_v, acc_u, a);
+    if (s + 1 < steps)
+      wg_consume_stage<1>(sm, s + 1, r0, r1, t, lane, peer, acc_h, acc_v, acc_u, a);
+    if (s + 2 < steps)
+      wg_consume_stage<2>(sm, s + 2, r0, r1, t, lane, peer, acc_h, acc_v, acc_u, a);
+  }
+  wgmma_wait<0>();
+  fence_operands(acc_h);
+  fence_operands(acc_v);
+  fence_operands(acc_u);
+  // Nothing of either CTA's shared memory is touched after this: the peer
+  // may leave once the epilogue's stores are issued.
+  cluster_arrive();
 
-    // Accumulator layout: entry 4n + e is row g + 8 * (e / 2), column
-    // 8n + 2t + e % 2; columns 64-127 of acc_h / acc_v hold Hv / vv.  Entries
-    // e and e + 1 are neighbours in a row: with nj even they go out as one
-    // 8-byte store, so a warp's store fills whole 32-byte sectors.
-    const long long plane = ni * nj;
+  // Accumulator layout: entry 4n + e is row g + 8 * (e / 2), column
+  // 8n + 2t + e % 2, column group n reading B's block n.  In acc_h / acc_v,
+  // j rows 8b..8b+7 are group hb = (b / 4) * 8 + b % 4 against H_j and hb + 4
+  // against v_j (the slot order); in acc_u they are group b.  Entries e and
+  // e + 1 are neighbours in a row: with nj even they go out as one 8-byte
+  // store, so a warp's store fills whole 32-byte sectors.
+  const long long plane = ni * nj;
 #pragma unroll
-    for (int nb = 0; nb < kWgBN / 8; ++nb) {
+  for (int nb = 0; nb < kWgBN / 8; ++nb) {
+    const int hb = (nb / 4) * 8 + nb % 4, vb = hb + 4;
 #pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const long long i = i0 + (e < 2 ? r0 : r1);
-        const long long j = j0 + nb * 8 + 2 * t;
-        if (i >= ni || j >= nj) continue;
-        if (nj % 2 == 0) {
-          store_counter_pairs(out, plane, i * nj + j, acc_h[4 * nb + e], acc_h[4 * nb + e + 1],
-                              acc_h[4 * (nb + 8) + e], acc_h[4 * (nb + 8) + e + 1],
-                              acc_v[4 * nb + e], acc_v[4 * nb + e + 1], acc_v[4 * (nb + 8) + e],
-                              acc_v[4 * (nb + 8) + e + 1], acc_u[4 * nb + e],
-                              acc_u[4 * nb + e + 1]);
-          continue;
-        }
+    for (int e = 0; e < 4; e += 2) {
+      const long long i = i0 + (e < 2 ? r0 : r1);
+      const long long j = j0 + nb * 8 + 2 * t;
+      if (i >= ni || j >= nj) continue;
+      if (nj % 2 == 0) {
+        store_counter_pairs(out, plane, i * nj + j, acc_h[4 * hb + e], acc_h[4 * hb + e + 1],
+                            acc_h[4 * vb + e], acc_h[4 * vb + e + 1], acc_v[4 * hb + e],
+                            acc_v[4 * hb + e + 1], acc_v[4 * vb + e], acc_v[4 * vb + e + 1],
+                            acc_u[4 * nb + e], acc_u[4 * nb + e + 1]);
+        continue;
+      }
 #pragma unroll
-        for (int d = 0; d < 2; ++d) {
-          if (j + d >= nj) continue;
-          store_counters(out, plane, i * nj + j + d, acc_h[4 * nb + e + d],
-                         acc_h[4 * (nb + 8) + e + d], acc_v[4 * nb + e + d],
-                         acc_v[4 * (nb + 8) + e + d], acc_u[4 * nb + e + d]);
-        }
+      for (int d = 0; d < 2; ++d) {
+        if (j + d >= nj) continue;
+        store_counters(out, plane, i * nj + j + d, acc_h[4 * hb + e + d],
+                       acc_h[4 * vb + e + d], acc_v[4 * hb + e + d], acc_v[4 * vb + e + d],
+                       acc_u[4 * nb + e + d]);
       }
     }
   }
+  cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -709,12 +851,29 @@ int king_counts_launch(const void* planes_i, long long rows_i, long long i_off,
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap map_i{}, map_j{};  // with no words, no stage loads and the counters are 0
   if (words > 0 && (!plane_map(planes_i, rows_i, words, kWgBM, &map_i) ||
-                    !plane_map(planes_j, rows_j, words, kWgBN, &map_j)))
+                    !plane_map(planes_j, rows_j, words, kWgBHalf, &map_j)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((unsigned)((nj + kWgBN - 1) / kWgBN), (unsigned)((ni + kWgBM - 1) / kWgBM));
+  // The i tiles rounded up to whole clusters.
+  const long long tiles_i = (ni + kWgBM - 1) / kWgBM;
+  const dim3 grid((unsigned)((nj + kWgBN - 1) / kWgBN),
+                  (unsigned)((tiles_i + kCluster - 1) / kCluster * kCluster));
   king_counts_wgmma_kernel<<<grid, kWgThreads, kWgSmem, static_cast<cudaStream_t>(stream)>>>(
       map_i, i_off, ni, map_j, j_off, nj, words, tri, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many of the wgmma kernel's clusters the current device holds at once
+// (cudaOccupancyMaxActiveClusters), into *clusters; returns the CUDA error.
+int king_counts_max_active_clusters(int* clusters) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      king_counts_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(1024 / kWgBN, 1024 / kWgBM);  // a 1024 x 1024 step
+  config.blockDim = dim3(kWgThreads);
+  config.dynamicSmemBytes = kWgSmem;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, king_counts_wgmma_kernel, &config));
 }
 
 // The same contract, through the AND + popcount kernel.

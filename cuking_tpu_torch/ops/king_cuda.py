@@ -18,10 +18,12 @@ The kernel (``king_counts_wgmma_kernel``) computes the five int8 products
 of :func:`panel_counts_five_block` on Hopper's tensor cores, one 128 x 64
 pair tile per CTA (a 1024 x 1024 step is one wave of 128 CTAs), with its
 warpgroups specialised: a producer loads the packed words through tensor
-maps (encoded on the host once per storage and kept) and unpacks the j
-rows into shared memory, and two consumers build the i rows' indicators in
-registers and issue ``wgmma``, handing stages over on mbarriers; the
-source's header says why.  The tensor maps' 32-bit coordinates admit
+maps (encoded on the host once per storage and kept) and unpacks j rows
+into shared memory, and two consumers build the i rows' indicators in
+registers and issue ``wgmma``, handing stages over on mbarriers.  The CTAs
+run in clusters of two along i that share their j tile: each producer
+unpacks half of it and hands that half to the other CTA; the source's
+header says why.  The tensor maps' 32-bit coordinates admit
 storages of fewer than 2^31 rows and words.
 
 A CPU tensor takes the plain version, :func:`panel_counts_five_block`: the
@@ -35,7 +37,8 @@ is current while the SHA-256 of ``csrc/`` and the nvcc flags, stored beside
 it at build time, still matches: a digest and not a modification time, so
 that a library prebuilt into a container image stays current after ``COPY``
 gives the sources newer times (the runtime image has no ``nvcc``).  ``launches``
-counts launches of the wgmma kernel.
+counts launches of the wgmma kernel; ``shared_unpack_ctas`` and
+``helper_ctas`` count their CTAs by role (:func:`cluster_roles`).
 
 :func:`panel_counts_popc_indexed` runs the same contract through the first
 port's AND + popcount kernel, the yardstick the wgmma kernel is timed
@@ -45,6 +48,7 @@ launches.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import threading
@@ -74,10 +78,18 @@ NVCC_FLAGS = [
 ENTRY = "king_counts_launch"            # the wgmma kernel: the main path
 POPC_ENTRY = "king_counts_popc_launch"  # the AND + popcount yardstick
 EMIT_ENTRY = "king_emit_launch"         # the emit kernel (ops/king_emit.py)
+CLUSTERS_ENTRY = "king_counts_max_active_clusters"
+
+# The wgmma kernel's pair tile (i rows x j rows) and its CTAs per cluster,
+# along i (kWgBM, kWgBN, kCluster in csrc/king_counts.cu).
+TILE_I, TILE_J, CLUSTER = 128, 64, 2
 
 # Kernel launches since import (or since a caller reset them to 0).
 launches = 0       # the wgmma kernel
 popc_launches = 0  # the AND + popcount yardstick
+# The wgmma kernel's CTAs over those launches, by role (cluster_roles):
+shared_unpack_ctas = 0  # computed pairs, half of their j tile unpacked by the peer
+helper_ctas = 0         # computed nothing, only unpacked their half for the peer
 
 _lock = threading.Lock()
 _lib = None
@@ -181,6 +193,42 @@ def library():
     return _lib
 
 
+def max_active_clusters() -> int:
+    """How many of the wgmma kernel's 2-CTA clusters the current CUDA device
+    holds at once, by ``cudaOccupancyMaxActiveClusters`` for a 1024 x 1024
+    step: a step is one wave while this is at least 64."""
+    import ctypes
+
+    fn = getattr(library(), CLUSTERS_ENTRY)
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]
+    n = ctypes.c_int(0)
+    err = fn(ctypes.byref(n))
+    if err:
+        raise UnknownError(f"{CLUSTERS_ENTRY} failed: CUDA error {err}")
+    return n.value
+
+
+@functools.lru_cache(maxsize=256)
+def cluster_roles(ni: int, nj: int, tri: bool) -> tuple[int, int]:
+    """(computing CTAs, helper CTAs) of one wgmma launch over ``ni`` x ``nj``
+    pairs, by the kernel's own rule.  Its grid is the 128 x 64 pair tiles,
+    the i tiles rounded up to whole 2-CTA clusters.  A CTA computes when
+    its tile starts inside ``ni`` and, with ``tri``, holds a pair whose
+    i < j by the tile's corners.  A helper computes nothing but unpacks its
+    half of the j tile for a computing peer; a cluster with no computing
+    CTA exits at once and counts as neither.  In each column of tiles the
+    computing CTAs are a prefix of the i tiles, so a column has a helper
+    when that prefix is odd."""
+    tiles_i = -(-ni // TILE_I)
+    computing = helpers = 0
+    for bx in range(-(-nj // TILE_J)):
+        # With tri, tile row y computes while TILE_I * y <= TILE_J * bx + TILE_J - 2.
+        rows = min(tiles_i, (TILE_J * bx + TILE_J - 2) // TILE_I + 1) if tri else tiles_i
+        computing += rows
+        helpers += rows % CLUSTER
+    return computing, helpers
+
+
 def five_block_indicators(planes: torch.Tensor):
     """[2, N, W] packed → int8 [N, 32·W] H (het), v (hom-ref or hom-alt) and
     u (+1 hom-alt, −1 hom-ref); missing sites are 0 in all three."""
@@ -266,7 +314,7 @@ def _check_pair(planes_i, i_off, ni, planes_j, j_off, nj) -> None:
 
 
 def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
-    global launches
+    global launches, shared_unpack_ctas, helper_ctas
     i_off, ni, j_off, nj = int(i_off), int(ni), int(j_off), int(nj)
     _check_pair(planes_i, i_off, ni, planes_j, j_off, nj)
     if planes_i.device.type == "cpu":
@@ -280,6 +328,9 @@ def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
         )
     counts = _launch(ENTRY, planes_i, i_off, ni, planes_j, j_off, nj, tri)
     launches += 1
+    computing, helpers = cluster_roles(ni, nj, bool(tri))
+    shared_unpack_ctas += computing
+    helper_ctas += helpers
     return counts
 
 

@@ -148,13 +148,67 @@ def test_cpu_entries_take_the_five_block_plain_version(monkeypatch):
 
     monkeypatch.setattr(king_cuda, "panel_counts_five_block", spy)
     g, planes = _planes(40, 300, seed=5)
-    before = (king_cuda.launches, king_cuda.popc_launches)
+    counters = lambda: (king_cuda.launches, king_cuda.popc_launches,
+                        king_cuda.shared_unpack_ctas, king_cuda.helper_ctas)
+    before = counters()
     got = panel_counts_cuda_indexed(_t(planes), 8, 16, 0, 16, panel_j=24)
     _assert_counts_equal(got, oracle_counts(g[8:24], g[16:40]))
     got = panel_counts_cuda(_t(planes[:, :8].copy()), _t(planes[:, 8:].copy()))
     _assert_counts_equal(got, oracle_counts(g[:8], g[8:]))
     assert calls == [(16, 24), (8, 32)]
-    assert (king_cuda.launches, king_cuda.popc_launches) == before
+    assert counters() == before
+
+
+def _kernel_computes(bx, by, ni, nj, tri):
+    """The CUDA kernel's own test of whether CTA (bx, by) computes pairs
+    (``computes`` in ``king_counts_wgmma_kernel``)."""
+    i0, j0 = king_cuda.TILE_I * by, king_cuda.TILE_J * bx
+    return i0 < ni and not (tri and i0 >= j0 + king_cuda.TILE_J - 1)
+
+
+ROLE_SHAPES = [(ni, nj, False) for ni in (1, 100, 128, 129, 300, 1024)
+               for nj in (1, 65, 700, 1024)] + [
+    (n, n, True) for n in (1, 63, 100, 128, 129, 300, 1000, 1024)]
+
+
+@pytest.mark.parametrize("ni,nj,tri", ROLE_SHAPES)
+def test_cluster_roles_match_a_walk_over_the_tiles(ni, nj, tri):
+    """The host's count of the kernel's CTAs by role equals a walk over the
+    launch's tiles, the i tiles rounded up to whole 2-CTA clusters: every
+    pair to compute (any pair, with ``tri`` any i < j) lies in exactly one
+    computing CTA, and a helper stands only beside a computing peer."""
+    tiles_i = -(-ni // king_cuda.TILE_I)
+    tiles_j = -(-nj // king_cuda.TILE_J)
+    rows = -(-tiles_i // king_cuda.CLUSTER) * king_cuda.CLUSTER
+    covered = np.zeros((rows * king_cuda.TILE_I, tiles_j * king_cuda.TILE_J), np.int32)
+    computing = helpers = 0
+    for bx in range(tiles_j):
+        for y0 in range(0, rows, king_cuda.CLUSTER):
+            cluster = [_kernel_computes(bx, y, ni, nj, tri)
+                       for y in range(y0, y0 + king_cuda.CLUSTER)]
+            for y, computes in enumerate(cluster, y0):
+                if computes:
+                    computing += 1
+                    covered[y * king_cuda.TILE_I:(y + 1) * king_cuda.TILE_I,
+                            bx * king_cuda.TILE_J:(bx + 1) * king_cuda.TILE_J] += 1
+                elif any(cluster):
+                    helpers += 1
+    need = np.ones((ni, nj), bool)
+    if tri:
+        need = np.triu(need, 1)
+    assert (covered[:ni, :nj][need] == 1).all()
+    assert covered.max() <= 1
+    assert king_cuda.cluster_roles(ni, nj, tri) == (computing, helpers)
+
+
+def test_cluster_roles_of_the_sweep_cells_steps():
+    """A 1024 x 1024 step: off the diagonal 128 computing CTAs and no
+    helper; on the diagonal (``tri``) 72 computing beside 8 helpers, one in
+    every other column of tiles."""
+    assert king_cuda.cluster_roles(1024, 1024, False) == (128, 0)
+    assert king_cuda.cluster_roles(1024, 1024, True) == (72, 8)
+    assert king_cuda.cluster_roles(100, 1024, False) == (16, 16)
+    assert king_cuda.cluster_roles(300, 700, False) == (33, 11)
 
 
 def test_entries_check_their_inputs():

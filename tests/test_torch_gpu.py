@@ -61,6 +61,8 @@ def cuda_device():
     (100_000, 100, 1100, 1024, 1024, 0),
     (3_100, 17, 1100, 1000, 700, 0),
     (3_100, 256, 256, 1024, 1024, 1),
+    (3_100, 2100, 5, 100, 1000, 0),
+    (93_511, 3, 1000, 129, 1024, 0),
 ])
 def test_cuda_kernel_matches_plain_version(cuda_device, sites, i_off, j_off,
                                            panel, panel_j, tri):
@@ -81,24 +83,60 @@ def test_cuda_kernel_matches_plain_version(cuda_device, sites, i_off, j_off,
         assert torch.equal(g, e), name
 
 
+def kernel_tiles_written(planes, n: int, tri: int) -> torch.Tensor:
+    """[i tiles, j tiles] bool: the kernel's pair tiles that it wrote in a
+    launch over rows [0, n) against themselves, through its C entry into
+    counters preset to -1 (no count is negative).  A computing CTA writes
+    every pair of its tile inside n x n; a helper and an exited cluster
+    write nothing."""
+    out = torch.full((6, n, n), -1, dtype=torch.int32, device=planes.device)
+    err = getattr(king_cuda.library(), king_cuda.ENTRY)(
+        planes.data_ptr(), planes.shape[1], 0, n, planes.data_ptr(), planes.shape[1], 0, n,
+        planes.shape[2], tri, out.data_ptr(),
+        torch.cuda.current_stream(planes.device).cuda_stream)
+    assert err == 0
+    ti, tj = -(-n // king_cuda.TILE_I), -(-n // king_cuda.TILE_J)
+    written = torch.zeros((ti * king_cuda.TILE_I, tj * king_cuda.TILE_J), dtype=torch.bool,
+                          device=planes.device)
+    written[:n, :n] = (out >= 0).any(0)
+    return written.view(ti, king_cuda.TILE_I, tj, king_cuda.TILE_J).any(3).any(1).cpu()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("sites,n,tri", [
     (100_000, 320, 0), (128, 300, 0), (128, 300, 1), (1_000_000, 130, 0),
     (93_511, 1024, 0), (93_511, 1024, 1),
+    (100_000, 300, 0), (100_000, 100, 0), (100_000, 128, 0), (100_000, 129, 0),
+    (100_000, 129, 1), (128, 100, 1), (1_000_000, 300, 1),
 ])
 def test_cuda_kernel_matches_five_block_and_popc_on_edge_rows(cuda_device, sites, n, tri):
     """Edge rows at 100,000 sites, at W = 4 (128 sites), at 1,000,000 sites
     and at the UK Biobank step (93,511 sites = 2,924 words, 1024 x 1024):
     the kernel equals the five-block plain version, and so does the AND +
-    popcount kernel; each launch is counted once, on its own counter."""
+    popcount kernel; each launch is counted once, on its own counter.  The
+    tiles the kernel writes give its computing CTAs: in each column of
+    tiles a prefix of the i tiles, and a helper beside an odd prefix's last
+    (the pairs of i tiles are the clusters); the role counters rise by
+    those.  The shapes take every role: three i tiles (300: one helper a
+    column), a single tile (100, 128: a helper beside every computing CTA),
+    a second tile of one row (129), and ``tri`` pairs whose diagonal
+    clusters hold one computing CTA (1024 at 2,924 words, 300 at 1,000,000
+    sites)."""
     layout = PlaneLayout.create(sites)
     planes = torch.from_numpy(
         edge_planes(n, layout, np.random.default_rng(sites)).view(np.int32)
     ).to(cuda_device)
-    before = (king_cuda.launches, king_cuda.popc_launches)
+    counters = lambda: (king_cuda.launches, king_cuda.popc_launches,
+                        king_cuda.shared_unpack_ctas, king_cuda.helper_ctas)
+    before = counters()
     got = {"kernel": panel_counts_cuda_indexed(planes, 0, 0, tri, n),
            "popc": panel_counts_popc_indexed(planes, 0, 0, tri, n)}
-    assert (king_cuda.launches, king_cuda.popc_launches) == (before[0] + 1, before[1] + 1)
+    tiles = kernel_tiles_written(planes, n, tri)
+    rows = tiles.sum(0)
+    assert all(tiles[:r, x].all() for x, r in enumerate(rows.tolist()))
+    computing, helpers = int(rows.sum()), int((rows % king_cuda.CLUSTER).sum())
+    assert counters() == (before[0] + 1, before[1] + 1, before[2] + computing,
+                          before[3] + helpers)
     exp = panel_counts_five_block(planes, planes)
     torch.cuda.synchronize()
     keep = torch.ones((n, n), dtype=torch.bool, device=cuda_device).triu(1 if tri else -n)

@@ -84,8 +84,8 @@ def test_every_kernel_of_the_count_step_is_count_kernel_time():
     kernel's category, so that no count-step work escapes the roofline."""
     with open(KERNEL_SOURCE) as f:
         source = f.read()
-    names = re.findall(
-        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(", source)
+    names = re.findall(  # past attributes such as __cluster_dims__ and __launch_bounds__
+        r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s+)*(\w+)\s*\(", source)
     assert trace.LAUNCH_NAMES["king_counts"] == "king_counts_wgmma_kernel"
     assert "king_counts_wgmma_kernel" in names
     spec = importlib.util.spec_from_file_location("frozen_trace", FROZEN_TRACE)
