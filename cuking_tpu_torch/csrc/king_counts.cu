@@ -7,7 +7,9 @@
 // `panel_counts_pallas` (sliced panels) and `_panel_counts_pallas_indexed`
 // (row offsets into the full storage).  Both entries of the port
 // (cuking_tpu_torch/ops/king_cuda.py) call `king_counts_launch` with a base
-// pointer and a row offset per side.  Its first body, in which all eight
+// pointer and a row offset per side.  It is the file's one kernel, and
+// `king_counts_launch` and `king_emit_launch` (king_emit.cu) are the
+// library's two C entries.  The kernel's first body, in which all eight
 // warps loaded, unpacked B, built A and issued the products in turn around a
 // CTA barrier every four words, ran at ~49% of the bound below; the
 // warp-specialised one CTA at a time, at ~73%.
@@ -52,7 +54,8 @@
 //   Each CTA loads and unpacks only its half of the j rows (rank r: rows
 //   32r..32r+31) and hands it to the other, so a product needs half the
 //   unpack it did with one CTA per tile; both CTAs multiply the whole tile.
-//   The card holds 66 such clusters at once, so a step stays one wave.
+//   The card holds 66 such clusters at once (cudaOccupancyMaxActiveClusters
+//   on an H100 80GB HBM3), so a step stays one wave.
 // * The producer warpgroup (24 registers after `setmaxnreg.dec`) keeps an
 //   8-stage ring of packed 4-word row slices loading as two tensor-map boxes
 //   a stage (its 128 i rows, its 32 j rows; the maps are encoded on the host
@@ -112,10 +115,6 @@
 // The card's power is the next wall: the kernel draws ~690 W, and a hot
 // card cuts its SM clock from 1,980 to ~1,830 MHz (sw_power_cap,
 // sw_thermal_slowdown).
-//
-// `king_counts_popc_launch` keeps the same contract through the first port's
-// AND + popcount kernel: the yardstick the wgmma kernel is timed against.
-// Nothing on the main path calls it.
 
 #include <cuda.h>  // CUtensorMap and its enums; the driver is reached through the runtime
 #include <cuda_runtime.h>
@@ -643,126 +642,6 @@ king_counts_wgmma_kernel(const __grid_constant__ CUtensorMap map_i, long long i_
 }
 
 // ---------------------------------------------------------------------------
-// The AND + popcount kernel (the first port's design).
-//
-// Per word it derives h = het & ~hom, a = ~het & hom, r = ~het & ~hom,
-// d = ~(het & hom) and accumulates, for every pair,
-//   both_het += popc(h_i & h_j)   het_i += popc(h_i & d_j)
-//   het_j += popc(d_i & h_j)      shared += popc(d_i & d_j)
-//   opposing += popc((r_i & a_j) | (a_i & r_j))
-//   concordant += popc((r_i & r_j) | (a_i & a_j))
-// One CTA owns a 64 x 64 pair tile; 16-word site chunks are staged split
-// into h/a/r/d, and each of 256 threads keeps a 4 x 4 sub-tile of pairs x 6
-// counters.  Bounded by integer issue: 6 POPC per pair and word, at 16 per
-// clock per SM.  Words past W and rows past the panel stage as missing.
-
-constexpr int kPopcTile = 64;
-constexpr int kPopcEdge = 16;                    // blockDim = 16 x 16
-constexpr int kPopcSub = kPopcTile / kPopcEdge;  // 4 x 4 pairs per thread
-constexpr int kPopcChunk = 16;                   // words staged per step
-
-struct PopcStaged {
-  uint32_t k[4][kPopcChunk][kPopcTile];  // h, a, r, d
-};
-
-__device__ __forceinline__ void popc_stage_quarter(
-    PopcStaged& s, const uint32_t* __restrict__ planes, long long rows,
-    long long row0, long long n, long long words, long long w0, int tid) {
-  const int row = tid >> 2;
-  const int q = tid & 3;
-  const long long w = w0 + 4 * q;
-  uint4 het = make_uint4(~0u, ~0u, ~0u, ~0u);
-  uint4 hom = het;
-  if (row < n && w < words) {
-    const long long base = (row0 + row) * words + w;
-    het = *reinterpret_cast<const uint4*>(planes + base);
-    hom = *reinterpret_cast<const uint4*>(planes + rows * words + base);
-  }
-  const uint32_t he[4] = {het.x, het.y, het.z, het.w};
-  const uint32_t ho[4] = {hom.x, hom.y, hom.z, hom.w};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int c = 4 * q + e;
-    s.k[0][c][row] = he[e] & ~ho[e];
-    s.k[1][c][row] = ~he[e] & ho[e];
-    s.k[2][c][row] = ~he[e] & ~ho[e];
-    s.k[3][c][row] = ~(he[e] & ho[e]);
-  }
-}
-
-__global__ void __launch_bounds__(kPopcEdge * kPopcEdge)
-king_counts_popc_kernel(const uint32_t* __restrict__ planes_i, long long rows_i,
-                        long long i_off, long long ni,
-                        const uint32_t* __restrict__ planes_j, long long rows_j,
-                        long long j_off, long long nj, long long words, int tri,
-                        int32_t* __restrict__ out) {
-  const int bi = blockIdx.y, bj = blockIdx.x;
-  if (tri && bi > bj) return;  // wholly below the tile diagonal: all i > j
-
-  __shared__ PopcStaged si, sj;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kPopcEdge + tx;
-  const long long i0 = (long long)bi * kPopcTile, j0 = (long long)bj * kPopcTile;
-
-  int bh[kPopcSub][kPopcSub] = {}, hi[kPopcSub][kPopcSub] = {};
-  int hj[kPopcSub][kPopcSub] = {}, oh[kPopcSub][kPopcSub] = {};
-  int ch[kPopcSub][kPopcSub] = {}, ss[kPopcSub][kPopcSub] = {};
-
-  for (long long w0 = 0; w0 < words; w0 += kPopcChunk) {
-    __syncthreads();
-    popc_stage_quarter(si, planes_i, rows_i, i_off + i0, ni - i0, words, w0, tid);
-    popc_stage_quarter(sj, planes_j, rows_j, j_off + j0, nj - j0, words, w0, tid);
-    __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < kPopcChunk; ++c) {
-      uint32_t jh[kPopcSub], ja[kPopcSub], jr[kPopcSub], jd[kPopcSub];
-#pragma unroll
-      for (int b = 0; b < kPopcSub; ++b) {
-        const int col = tx + kPopcEdge * b;
-        jh[b] = sj.k[0][c][col];
-        ja[b] = sj.k[1][c][col];
-        jr[b] = sj.k[2][c][col];
-        jd[b] = sj.k[3][c][col];
-      }
-#pragma unroll
-      for (int a = 0; a < kPopcSub; ++a) {
-        const int row = ty + kPopcEdge * a;
-        const uint32_t ih = si.k[0][c][row], ia = si.k[1][c][row];
-        const uint32_t ir = si.k[2][c][row], id = si.k[3][c][row];
-#pragma unroll
-        for (int b = 0; b < kPopcSub; ++b) {
-          bh[a][b] += __popc(ih & jh[b]);
-          hi[a][b] += __popc(ih & jd[b]);
-          hj[a][b] += __popc(id & jh[b]);
-          ss[a][b] += __popc(id & jd[b]);
-          oh[a][b] += __popc((ir & ja[b]) | (ia & jr[b]));
-          ch[a][b] += __popc((ir & jr[b]) | (ia & ja[b]));
-        }
-      }
-    }
-  }
-
-  const long long plane = ni * nj;
-#pragma unroll
-  for (int a = 0; a < kPopcSub; ++a) {
-    const long long i = i0 + ty + kPopcEdge * a;
-    if (i >= ni) continue;
-#pragma unroll
-    for (int b = 0; b < kPopcSub; ++b) {
-      const long long j = j0 + tx + kPopcEdge * b;
-      if (j >= nj) continue;
-      int32_t* o = out + i * nj + j;
-      o[0 * plane] = bh[a][b];
-      o[1 * plane] = hi[a][b];
-      o[2 * plane] = hj[a][b];
-      o[3 * plane] = oh[a][b];
-      o[4 * plane] = ch[a][b];
-      o[5 * plane] = ss[a][b];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Tensor maps of the planes, encoded once per (storage, box) and kept.
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -859,35 +738,6 @@ int king_counts_launch(const void* planes_i, long long rows_i, long long i_off,
                   (unsigned)((tiles_i + kCluster - 1) / kCluster * kCluster));
   king_counts_wgmma_kernel<<<grid, kWgThreads, kWgSmem, static_cast<cudaStream_t>(stream)>>>(
       map_i, i_off, ni, map_j, j_off, nj, words, tri, static_cast<int32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// How many of the wgmma kernel's clusters the current device holds at once
-// (cudaOccupancyMaxActiveClusters), into *clusters; returns the CUDA error.
-int king_counts_max_active_clusters(int* clusters) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      king_counts_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(1024 / kWgBN, 1024 / kWgBM);  // a 1024 x 1024 step
-  config.blockDim = dim3(kWgThreads);
-  config.dynamicSmemBytes = kWgSmem;
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(clusters, king_counts_wgmma_kernel, &config));
-}
-
-// The same contract, through the AND + popcount kernel.
-int king_counts_popc_launch(const void* planes_i, long long rows_i, long long i_off,
-                            long long ni, const void* planes_j, long long rows_j,
-                            long long j_off, long long nj, long long words,
-                            int tri, void* out, void* stream) {
-  const dim3 grid((unsigned)((nj + kPopcTile - 1) / kPopcTile),
-                  (unsigned)((ni + kPopcTile - 1) / kPopcTile));
-  const dim3 block(kPopcEdge, kPopcEdge);
-  king_counts_popc_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(planes_i), rows_i, i_off, ni,
-      static_cast<const uint32_t*>(planes_j), rows_j, j_off, nj, words, tri,
-      static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -36,8 +36,9 @@ packed planes for one shard, in PyTorch.
 
 Spans (``utils/stopwatch.py``, recorded while a ``torch.profiler`` records):
 ``engine.run`` around ``run()`` (``sweeps``, ``keep_all`` 0 or 1, and
-``slots``, the hit buffer's as allocated); inside it ``engine.upload`` (when
-``planes_dev`` uploads; ``bytes``), ``engine.schedule`` (``steps``),
+``slots``, the hit buffer's as allocated); inside it ``engine.schedule``
+(``steps``; in an engine's first run only, as the schedule is kept),
+``engine.upload`` (when ``planes_dev`` uploads; ``bytes``),
 ``engine.steps`` (the step loop, first launch to last; ``steps``), an
 ``engine.limit_wait`` per wait for a count copy, ``engine.count_read``
 (``total``), ``engine.fetch`` (``rows``, and ``bytes`` copied to the host)
@@ -280,6 +281,7 @@ class KingEngine:
         self._indexed_kernel = resolve_indexed_kernel(self.config)
         self._planes_dev_cache = None
         self._planes_dev_version = None
+        self._steps = None  # the schedule, built once (_schedule)
 
     @property
     def planes_dev(self) -> torch.Tensor:
@@ -338,6 +340,16 @@ class KingEngine:
                 rows.append((i_off, j_off, gi_base, gj_base, ni_valid, nj_valid))
         return np.asarray(rows, dtype=np.int32).reshape(-1, 6)
 
+    def _schedule(self) -> list:
+        """:meth:`_panel_pair_params` as a list of rows, built at the first
+        call in an ``engine.schedule`` span and kept: the storage's geometry
+        is fixed for an engine, so every later run and sweep reads this."""
+        if self._steps is None:
+            with span("engine.schedule") as schedule:
+                self._steps = self._panel_pair_params().tolist()
+                schedule.count(steps=len(self._steps))
+        return self._steps
+
     def _counts(self, planes: torch.Tensor, i_off: int, j_off: int,
                 tri: bool) -> KingCounts:
         panel = self.config.panel
@@ -358,11 +370,12 @@ class KingEngine:
             else:
                 capacity = cfg.resolved_result_capacity()
             run_span.count(keep_all=int(cfg.keep_all))
+            steps = len(self._schedule())
             sweeps = 0
             while True:
                 self.logger.begin(
                     f"Running KING kernel for {st.nr} x {st.nc} matrix"
-                    f" ({len(self._panel_pair_params())} panel-pair steps)...",
+                    f" ({steps} panel-pair steps)...",
                     "king_kernel",
                 )
                 hits = self.sweep(capacity)
@@ -413,9 +426,7 @@ class KingEngine:
         check = not cfg.keep_all
         planes = self.planes_dev
         hits = HitBuffer(capacity, self.device)
-        with span("engine.schedule") as schedule:
-            params = self._panel_pair_params().tolist()
-            schedule.count(steps=len(params))
+        params = self._schedule()
         # The loop's spans take the tracing decision from this one: no
         # per-step span, and no flag read inside the loop.
         with span("engine.steps", steps=len(params)) as steps:

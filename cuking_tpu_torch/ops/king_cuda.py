@@ -36,19 +36,16 @@ the library also holds the emit kernel (``csrc/king_emit.cu``), which
 is current while the SHA-256 of ``csrc/`` and the nvcc flags, stored beside
 it at build time, still matches: a digest and not a modification time, so
 that a library prebuilt into a container image stays current after ``COPY``
-gives the sources newer times (the runtime image has no ``nvcc``).  ``launches``
-counts launches of the wgmma kernel; ``shared_unpack_ctas`` and
-``helper_ctas`` count their CTAs by role (:func:`cluster_roles`).
-
-:func:`panel_counts_popc_indexed` runs the same contract through the first
-port's AND + popcount kernel, the yardstick the wgmma kernel is timed
-against.  Nothing on the main path calls it; ``popc_launches`` counts its
-launches.
+gives the sources newer times (the runtime image has no ``nvcc``).  The
+library's C entries are ``king_counts_launch`` and ``king_emit_launch``.
+``launches`` counts launches of the count kernel.  :func:`cluster_roles` is
+the host's one statement of the launch grid, the kernel's CTAs by role; a
+caller that reports a share of helper CTAs sums it over the shapes it
+launched (``KingEngine._panel_pair_params`` lists a sweep's).
 """
 
 from __future__ import annotations
 
-import functools
 import hashlib
 import os
 import threading
@@ -73,23 +70,16 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# C entries of the library.  The two count entries share
-# king_counts_launch's signature.
-ENTRY = "king_counts_launch"            # the wgmma kernel: the main path
-POPC_ENTRY = "king_counts_popc_launch"  # the AND + popcount yardstick
-EMIT_ENTRY = "king_emit_launch"         # the emit kernel (ops/king_emit.py)
-CLUSTERS_ENTRY = "king_counts_max_active_clusters"
+# C entries of the library.
+ENTRY = "king_counts_launch"     # the count kernel
+EMIT_ENTRY = "king_emit_launch"  # the emit kernel (ops/king_emit.py)
 
 # The wgmma kernel's pair tile (i rows x j rows) and its CTAs per cluster,
 # along i (kWgBM, kWgBN, kCluster in csrc/king_counts.cu).
 TILE_I, TILE_J, CLUSTER = 128, 64, 2
 
-# Kernel launches since import (or since a caller reset them to 0).
-launches = 0       # the wgmma kernel
-popc_launches = 0  # the AND + popcount yardstick
-# The wgmma kernel's CTAs over those launches, by role (cluster_roles):
-shared_unpack_ctas = 0  # computed pairs, half of their j tile unpacked by the peer
-helper_ctas = 0         # computed nothing, only unpacked their half for the peer
+# Count kernel launches since import (or since a caller reset it to 0).
+launches = 0
 
 _lock = threading.Lock()
 _lib = None
@@ -164,14 +154,13 @@ def build() -> str:
 
             lib = ctypes.CDLL(LIB_PATH)
             p, i64 = ctypes.c_void_p, ctypes.c_longlong
-            for name in (ENTRY, POPC_ENTRY):
-                fn = getattr(lib, name)
-                fn.restype = ctypes.c_int
-                fn.argtypes = [
-                    p, i64, i64, i64,  # planes_i, rows_i, i_off, ni
-                    p, i64, i64, i64,  # planes_j, rows_j, j_off, nj
-                    i64, ctypes.c_int, p, p,  # words, tri, out, stream
-                ]
+            fn = getattr(lib, ENTRY)
+            fn.restype = ctypes.c_int
+            fn.argtypes = [
+                p, i64, i64, i64,  # planes_i, rows_i, i_off, ni
+                p, i64, i64, i64,  # planes_j, rows_j, j_off, nj
+                i64, ctypes.c_int, p, p,  # words, tri, out, stream
+            ]
             emit = getattr(lib, EMIT_ENTRY)
             emit.restype = ctypes.c_int
             emit.argtypes = [
@@ -193,22 +182,6 @@ def library():
     return _lib
 
 
-def max_active_clusters() -> int:
-    """How many of the wgmma kernel's 2-CTA clusters the current CUDA device
-    holds at once, by ``cudaOccupancyMaxActiveClusters`` for a 1024 x 1024
-    step: a step is one wave while this is at least 64."""
-    import ctypes
-
-    fn = getattr(library(), CLUSTERS_ENTRY)
-    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.POINTER(ctypes.c_int)]
-    n = ctypes.c_int(0)
-    err = fn(ctypes.byref(n))
-    if err:
-        raise UnknownError(f"{CLUSTERS_ENTRY} failed: CUDA error {err}")
-    return n.value
-
-
-@functools.lru_cache(maxsize=256)
 def cluster_roles(ni: int, nj: int, tri: bool) -> tuple[int, int]:
     """(computing CTAs, helper CTAs) of one wgmma launch over ``ni`` x ``nj``
     pairs, by the kernel's own rule.  Its grid is the 128 x 64 pair tiles,
@@ -314,7 +287,7 @@ def _check_pair(planes_i, i_off, ni, planes_j, j_off, nj) -> None:
 
 
 def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
-    global launches, shared_unpack_ctas, helper_ctas
+    global launches
     i_off, ni, j_off, nj = int(i_off), int(ni), int(j_off), int(nj)
     _check_pair(planes_i, i_off, ni, planes_j, j_off, nj)
     if planes_i.device.type == "cpu":
@@ -326,16 +299,13 @@ def _panel_counts(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
             f"the count kernel runs on CUDA (or its plain version on the "
             f"CPU); got device {planes_i.device}"
         )
-    counts = _launch(ENTRY, planes_i, i_off, ni, planes_j, j_off, nj, tri)
+    counts = _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri)
     launches += 1
-    computing, helpers = cluster_roles(ni, nj, bool(tri))
-    shared_unpack_ctas += computing
-    helper_ctas += helpers
     return counts
 
 
-def _launch(entry, planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
-    """Launches the library's C entry ``entry`` on checked CUDA planes."""
+def _launch(planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
+    """Launches the count kernel on checked CUDA planes."""
     words = planes_i.shape[2]
     if words % 4:
         raise InvalidArgumentError(
@@ -349,13 +319,13 @@ def _launch(entry, planes_i, i_off, ni, planes_j, j_off, nj, tri) -> KingCounts:
     out = torch.empty((6, ni, nj), dtype=torch.int32, device=planes_i.device)
     stream = torch.cuda.current_stream(planes_i.device).cuda_stream
     with torch.cuda.device(planes_i.device):
-        err = getattr(lib, entry)(
+        err = getattr(lib, ENTRY)(
             planes_i.data_ptr(), planes_i.shape[1], i_off, ni,
             planes_j.data_ptr(), planes_j.shape[1], j_off, nj,
             words, 1 if tri else 0, out.data_ptr(), stream,
         )
     if err:
-        raise UnknownError(f"{entry} failed: CUDA error {err}")
+        raise UnknownError(f"{ENTRY} failed: CUDA error {err}")
     return KingCounts(*out.unbind(0))
 
 
@@ -385,29 +355,3 @@ def panel_counts_cuda_indexed(
     planes_j = planes if planes_j is None else planes_j
     panel_j = panel if panel_j is None else panel_j
     return _panel_counts(planes, i_off, panel, planes_j, j_off, panel_j, tri)
-
-
-def panel_counts_popc_indexed(
-    planes: torch.Tensor,
-    i_off: int,
-    j_off: int,
-    tri,
-    panel: int,
-    planes_j: torch.Tensor | None = None,
-    panel_j: int | None = None,
-) -> KingCounts:
-    """:func:`panel_counts_cuda_indexed` through the AND + popcount kernel:
-    the yardstick, off the main path.  CUDA tensors only: it exists to be
-    timed against the wgmma kernel on the card."""
-    global popc_launches
-    planes_j = planes if planes_j is None else planes_j
-    panel_j = panel if panel_j is None else panel_j
-    i_off, panel, j_off, panel_j = int(i_off), int(panel), int(j_off), int(panel_j)
-    _check_pair(planes, i_off, panel, planes_j, j_off, panel_j)
-    if planes.device.type != "cuda":
-        raise InvalidArgumentError(
-            f"the AND + popcount yardstick runs on CUDA only; got device {planes.device}"
-        )
-    counts = _launch(POPC_ENTRY, planes, i_off, panel, planes_j, j_off, panel_j, tri)
-    popc_launches += 1
-    return counts

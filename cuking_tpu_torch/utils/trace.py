@@ -42,9 +42,8 @@ OTHER_KERNELS = "other kernels"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # The kernels' names in a trace, by the names of their launch counters
-# (``king_cuda.launches``, ``king_emit.emit_launches``).  The AND + popcount
-# yardstick (``king_counts_popc_kernel``) is a count kernel too, but its
-# launches are counted apart.
+# (``king_cuda.launches``, ``king_emit.emit_launches``).  :func:`classify`
+# files any kernel whose name holds ``king_counts`` as a count kernel.
 LAUNCH_NAMES = {"king_counts": "king_counts_wgmma_kernel", "king_emit": "king_emit_kernel"}
 
 

@@ -140,7 +140,7 @@ def test_prebuilt_library_loads_without_nvcc_after_copy(tmp_path, monkeypatch):
     def fake_cdll(path):
         loaded.append(path)
         return types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
-            king_cuda.ENTRY, king_cuda.POPC_ENTRY, king_cuda.EMIT_ENTRY)})
+            king_cuda.ENTRY, king_cuda.EMIT_ENTRY)})
 
     monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
     monkeypatch.setattr(king_cuda, "_lib", None)

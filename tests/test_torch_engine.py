@@ -17,6 +17,7 @@ from cuking_tpu.parallel.submatrix import Submatrix as JaxSubmatrix
 from cuking_tpu.utils.status import ResourceExhaustedError as JaxResourceExhausted
 from cuking_tpu.utils.stopwatch import StageLogger as JaxStageLogger
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from cuking_tpu_torch.models import king as torch_king
 from cuking_tpu_torch.models.king import KingConfig, KingEngine, resolve_kernel_name
@@ -24,6 +25,7 @@ from cuking_tpu_torch.ops.compaction import HitBuffer
 from cuking_tpu_torch.parallel.submatrix import Submatrix
 from cuking_tpu_torch.utils.hbm import check_engine_fit
 from cuking_tpu_torch.utils.status import InvalidArgumentError, ResourceExhaustedError
+from cuking_tpu_torch.utils import stopwatch
 from cuking_tpu_torch.utils.stopwatch import StageLogger
 from cuking_tpu_torch.utils.synthetic import random_genotypes
 
@@ -78,6 +80,37 @@ def test_result_buffer_growth_matches_jax(genotypes):
     _assert_same(got, ref)
     assert _overflow_lines(log.getvalue()) == _overflow_lines(jax_log.getvalue()) == [
         "Result buffer overflowed (1128 hits > 3 slots); re-running at capacity 2048."]
+
+
+def test_one_engine_builds_its_schedule_once(genotypes, monkeypatch):
+    """Two runs of one engine, each through the overflow re-run, build the
+    schedule once: one ``_panel_pair_params`` call, in one
+    ``engine.schedule`` span inside the first run's ``engine.run``.  Both
+    runs' rows are a fresh engine's."""
+    calls = []
+    params = KingEngine._panel_pair_params
+
+    def counted(self):
+        calls.append(self)
+        return params(self)
+
+    monkeypatch.setattr(KingEngine, "_panel_pair_params", counted)
+    common = dict(panel=16, kin_threshold=-2.0, max_results=N * N, device="cpu")
+    engine = KingEngine.from_genotypes(genotypes, KingConfig(**common, result_capacity=3))
+    stopwatch.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = [engine.run(), engine.run()]
+    spans = stopwatch.recorded()
+    stopwatch.clear()
+    assert calls == [engine]
+    (schedule,) = [s for s in spans if s.name == "engine.schedule"]
+    runs = [s for s in spans if s.name == "engine.run"]
+    assert [r.counts["sweeps"] for r in runs] == [2, 2]
+    assert schedule.parent == runs[0].id and schedule.counts == {"steps": 6}
+    ref = KingEngine.from_genotypes(genotypes, KingConfig(**common)).run()
+    assert len(ref) == N * (N - 1) // 2
+    for rows in got:
+        _assert_same(rows, ref)
 
 
 def test_max_results_overflow_matches_jax(genotypes):

@@ -1,6 +1,6 @@
-"""The CUDA count kernel against its plain PyTorch versions and its
-AND + popcount yardstick, and the emit kernel against its plain version, on
-the card.
+"""The CUDA count kernel against its two plain PyTorch versions (the
+five-block and the 9-block products), and the emit kernel against its plain
+version, on the card.
 
 Marked ``gpu``: a CUDA kernel has no CPU mode, so these skip where
 ``torch.cuda.is_available()`` is false.  This file imports no jax, so it also
@@ -26,7 +26,6 @@ from cuking_tpu_torch.ops.king_cuda import (
     panel_counts_cuda,
     panel_counts_cuda_indexed,
     panel_counts_five_block,
-    panel_counts_popc_indexed,
 )
 from cuking_tpu_torch.models.king import KingConfig, KingEngine, PanelStorage
 from cuking_tpu_torch.ops.king_emit import emit_hits, emit_hits_plain
@@ -109,39 +108,37 @@ def kernel_tiles_written(planes, n: int, tri: int) -> torch.Tensor:
     (100_000, 300, 0), (100_000, 100, 0), (100_000, 128, 0), (100_000, 129, 0),
     (100_000, 129, 1), (128, 100, 1), (1_000_000, 300, 1),
 ])
-def test_cuda_kernel_matches_five_block_and_popc_on_edge_rows(cuda_device, sites, n, tri):
+def test_cuda_kernel_matches_five_block_and_matmul_on_edge_rows(cuda_device, sites, n, tri):
     """Edge rows at 100,000 sites, at W = 4 (128 sites), at 1,000,000 sites
     and at the UK Biobank step (93,511 sites = 2,924 words, 1024 x 1024):
-    the kernel equals the five-block plain version, and so does the AND +
-    popcount kernel; each launch is counted once, on its own counter.  The
-    tiles the kernel writes give its computing CTAs: in each column of
-    tiles a prefix of the i tiles, and a helper beside an odd prefix's last
-    (the pairs of i tiles are the clusters); the role counters rise by
-    those.  The shapes take every role: three i tiles (300: one helper a
-    column), a single tile (100, 128: a helper beside every computing CTA),
-    a second tile of one row (129), and ``tri`` pairs whose diagonal
-    clusters hold one computing CTA (1024 at 2,924 words, 300 at 1,000,000
-    sites)."""
+    the kernel equals the five-block plain version and the 9-block one
+    (``panel_counts_matmul``, a second decomposition), and its launch is
+    counted once.  The tiles the kernel writes give its computing CTAs: in
+    each column of tiles a prefix of the i tiles, and a helper beside an odd
+    prefix's last (the pairs of i tiles are the clusters); the host's rule,
+    ``cluster_roles``, gives those counts.  The shapes take every role:
+    three i tiles (300: one helper a column), a single tile (100, 128: a
+    helper beside every computing CTA), a second tile of one row (129), and
+    ``tri`` pairs whose diagonal clusters hold one computing CTA (1024 at
+    2,924 words, 300 at 1,000,000 sites)."""
     layout = PlaneLayout.create(sites)
     planes = torch.from_numpy(
         edge_planes(n, layout, np.random.default_rng(sites)).view(np.int32)
     ).to(cuda_device)
-    counters = lambda: (king_cuda.launches, king_cuda.popc_launches,
-                        king_cuda.shared_unpack_ctas, king_cuda.helper_ctas)
-    before = counters()
-    got = {"kernel": panel_counts_cuda_indexed(planes, 0, 0, tri, n),
-           "popc": panel_counts_popc_indexed(planes, 0, 0, tri, n)}
+    before = king_cuda.launches
+    got = panel_counts_cuda_indexed(planes, 0, 0, tri, n)
+    assert king_cuda.launches == before + 1
     tiles = kernel_tiles_written(planes, n, tri)
     rows = tiles.sum(0)
     assert all(tiles[:r, x].all() for x, r in enumerate(rows.tolist()))
     computing, helpers = int(rows.sum()), int((rows % king_cuda.CLUSTER).sum())
-    assert counters() == (before[0] + 1, before[1] + 1, before[2] + computing,
-                          before[3] + helpers)
-    exp = panel_counts_five_block(planes, planes)
-    torch.cuda.synchronize()
+    assert king_cuda.cluster_roles(n, n, bool(tri)) == (computing, helpers)
     keep = torch.ones((n, n), dtype=torch.bool, device=cuda_device).triu(1 if tri else -n)
-    for who, counts in got.items():
-        for name, g, e in zip(counts._fields, counts, exp):
+    exps = {"five-block": panel_counts_five_block(planes, planes),
+            "9-block": panel_counts_matmul(planes, planes)}
+    torch.cuda.synchronize()
+    for who, exp in exps.items():
+        for name, g, e in zip(got._fields, got, exp):
             assert torch.equal(g[keep], e[keep]), (who, name)
 
 
@@ -542,18 +539,16 @@ def store_1m():
 def test_kernels_past_word_2_31_at_1m_sites(store_1m, i_off, tri):
     """The last diagonal pair and the (first, last) pair of the 1M-site
     store through the indexed entry: the six counters equal the five-block
-    plain version and the AND + popcount yardstick, and the emit kernel on
-    them equals emit_hits_plain, keep-all and at the counters' median kin."""
+    plain version, and the emit kernel on them equals emit_hits_plain,
+    keep-all and at the counters' median kin."""
     planes, j_off = store_1m, 35_840
     got = panel_counts_cuda_indexed(planes, i_off, j_off, tri, 1024)
     five = panel_counts_five_block(planes[:, i_off:i_off + 1024], planes[:, j_off:j_off + 1024])
-    popc = panel_counts_popc_indexed(planes, i_off, j_off, tri, 1024)
     keep = torch.ones((1024, 1024), dtype=torch.bool, device=planes.device)
     if tri:
         keep = keep.triu(1)
-    for name, g, f, p in zip(got._fields, got, five, popc):
+    for name, g, f in zip(got._fields, got, five):
         assert torch.equal(g[keep], f[keep]), name
-        assert torch.equal(g[keep], p[keep]), name
     median = float(king_from_counts(got).kin[keep].median())
     for threshold in (-2.0, median):
         args = (i_off, j_off, i_off + 1024, j_off + 1024, threshold, True, False)

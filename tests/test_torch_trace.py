@@ -34,9 +34,10 @@ tool = importlib.import_module("tools.torch_trace_report")
 # Device event names as export_chrome_trace writes them.  The first nine are
 # from traces taken on an NVIDIA H100 80GB HBM3 (torch 2.11.0+cu128): six by
 # tools/torch_trace_report.py, then a host-to-device upload, a device copy
-# and the AND + popcount yardstick; the others are the profiler's names for
-# activities those traces do not have (peer copies and NCCL need two
-# cards).
+# and the first port's AND + popcount count kernel, since retired (any
+# ``king_counts`` kernel is still filed as a count kernel); the others are
+# the profiler's names for activities those traces do not have (peer copies
+# and NCCL need two cards).
 NAMES = [
     ("(anonymous namespace)::king_counts_wgmma_kernel(unsigned int const*, long long, "
      "long long, long long, unsigned int const*, long long, long long, long long, "
