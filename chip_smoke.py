@@ -54,6 +54,13 @@ Phases (any failure exits nonzero):
    and the keep-all instance, beside the plain version and the bound (the
    counters read once, the hits written once); the keep-all instance may
    not read below its bound.
+2c. Ingest's scatter kernel on ``gnomad_v4.task``'s planes (16,384 stored
+   rows x 1,000,000 sites, 4.1 GB): one file's 3.5M kept entries, a tenth
+   of them repeats, through ``ops/king_scatter.Stager`` and in one launch,
+   against the plain version on the card and the native packer on the
+   host, bit for bit; CUDA-event times of a launch beside its bound
+   (``utils/bounds.scatter_bound``) and of the plain version, and the
+   stager's send on the host clock.
 3. The main path: ``KingEngine`` at 32,768 samples x 100,000 sites with 64
    planted duplicate pairs; exactly those must come out, with kin == 0.5.
    Kernel launch counts are read from this run.  One more sweep's step loop
@@ -209,11 +216,17 @@ Phases (any failure exits nonzero):
     path's: the task's, read in its process, and this process's.
 
 Every count of kernel launches (``king_cuda.launches`` for the count
-kernel, ``king_emit.emit_launches`` for the emit kernel) is set to 0 just
-before a path runs and read just after (phase 10's tasks run in processes
-of their own, so their launches are the kernel events of their traces, and
-phases 15's, 16's and 17's are the counts the bench, the trace tool and
-the chip probe report from their own processes).  Phase 3 also profiles
+kernel, ``king_emit.emit_launches`` for the emit kernel,
+``king_scatter.launches`` for ingest's scatter) is set to 0 just before a
+path runs and read just after (phase 10's tasks run in processes of their
+own, so their launches are the kernel events of their traces, and their
+logs must name the card as the planes' place; phases 15's, 16's and 17's
+are the counts the bench, the trace tool and the chip probe report from
+their own processes).  A CLI task with one engine on the card (phases 5,
+10's split-1 run, 11, 14, 18) must launch the scatter kernel: its planes
+are built there; every other path (the engine on host planes, the rings,
+``--use_mesh`` and ``--distributed``) must launch none.  Phase 2c's own
+launches, which time the kernel, stay in its record and out of the paths'.  Phase 3 also profiles
 one more sweep for the device's busy share.  Every trace is read by ``cuking_tpu_torch.utils.trace``.  The
 second-to-last line is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Stage logs go to stderr.
@@ -239,6 +252,7 @@ from cuking_tpu_torch.utils.bounds import (  # noqa: F401  (re-exported)
     PEAK_INT8_OPS,
     count_bound,
     emit_bound,
+    scatter_bound,
 )
 
 SITES = 100_000
@@ -255,25 +269,34 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-# The kernels of the main path, by the name of their launch counters.
-KERNELS = ("king_counts", "king_emit")
+# The kernels of the main path, by the name of their launch counters: the
+# sweep's two, and ingest's scatter, which builds a single-card CLI task's
+# planes on the card.
+SWEEP_KERNELS = ("king_counts", "king_emit")
+KERNELS = SWEEP_KERNELS + ("king_scatter",)
 
 
 def reset_launches() -> None:
-    from cuking_tpu_torch.ops import king_cuda, king_emit
+    from cuking_tpu_torch.ops import king_cuda, king_emit, king_scatter
 
     king_cuda.launches = 0
     king_emit.emit_launches = 0
+    king_scatter.launches = 0
 
 
-def read_launches(what: str, path_kernels=KERNELS) -> dict:
+def read_launches(what: str, path_kernels=SWEEP_KERNELS) -> dict:
     """Launches of each kernel since :func:`reset_launches`; fails when a
-    kernel of the path (``path_kernels``) did not launch."""
-    from cuking_tpu_torch.ops import king_cuda, king_emit
+    kernel of the path (``path_kernels``) did not launch, and when the
+    scatter kernel launched on a path without it (host planes)."""
+    from cuking_tpu_torch.ops import king_cuda, king_emit, king_scatter
 
-    counts = {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches}
+    counts = {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches,
+              "king_scatter": king_scatter.launches}
     for name in path_kernels:
         check(counts[name] > 0, f"{what} launched no {name} kernel")
+    if "king_scatter" not in path_kernels:
+        check(counts["king_scatter"] == 0,
+              f"{what} launched {counts['king_scatter']} scatter kernels on host planes")
     return counts
 
 
@@ -398,7 +421,7 @@ def phase_build() -> None:
     kernel = "?"
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("counts_wgmma", "emit")
+            kernel = next((k for k in ("counts_wgmma", "emit", "scatter")
                            if f"king_{k}_kernel" in line), "?")
         elif "Used" in line or "spill" in line:
             say(f"  ptxas, {kernel} kernel: {line.split(':', 1)[-1].strip()}")
@@ -771,6 +794,85 @@ def phase_emit(card: str) -> dict:
     return {"max_abs_err": max_err, **t, "library_ms": None}
 
 
+# Phase 2c's planes: gnomad_v4.task's shard (split 5, shard 4 of 40,960
+# samples: 16,384 stored rows) at 1,000,000 sites, and one of its files'
+# kept entries.
+SCATTER_SAMPLES, SCATTER_SITES, SCATTER_ENTRIES = 40_960, 1_000_000, 3_500_000
+
+
+def phase_scatter(card: str) -> dict:
+    """Phase 2c: ingest's scatter kernel on ``gnomad_v4.task``'s planes
+    (4.1 GB): one file's kept entries, duplicates included, sent through
+    ``Stager`` (its slots, side stream and pinned copies) and launched
+    whole, against the plain version on the card and the native packer on
+    the host (the numpy path without g++), bit for bit; then CUDA-event
+    times of a whole launch, of the plain version and of the stager's send
+    (host clock, the copies and launches included), beside the bound."""
+    import torch
+
+    from cuking_tpu_torch.models.king import PanelStorage
+    from cuking_tpu_torch.native import packer
+    from cuking_tpu_torch.ops import bitset, king_scatter
+    from cuking_tpu_torch.ops.bitset import PlaneLayout
+    from cuking_tpu_torch.parallel.submatrix import Submatrix
+
+    layout = PlaneLayout.create(SCATTER_SITES)
+    sm = Submatrix.create(SCATTER_SAMPLES, 5, 4)
+    host = PanelStorage(layout, sm, 1024)
+    rng = np.random.default_rng(SEED + 6)
+    n = SCATTER_ENTRIES
+    samples = rng.choice(sm.stored_sample_indices(), n)
+    sites = rng.integers(0, layout.num_sites, n)
+    n_alt = rng.integers(0, 3, n).astype(np.int32)
+    dup = rng.integers(0, n, n // 10)
+    samples[: len(dup)], sites[: len(dup)] = samples[dup], sites[dup]
+    rows = host.storage_offsets(samples)
+    clear = packer.clear_bits if packer.available() else bitset.clear_bits_coo
+    t = time.perf_counter()
+    clear(host.planes, layout, rows, sites, n_alt)
+    host_ms = 1e3 * (time.perf_counter() - t)
+
+    dev = torch.device("cuda", 0)
+    store = PanelStorage(layout, sm, 1024, device=dev)
+    stager = king_scatter.Stager(store.planes, layout)
+    first_launch = king_scatter.launches
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    stager.send(rows, sites, n_alt, "phase 2c")
+    stager.close()
+    send_ms = 1e3 * (time.perf_counter() - t)
+    check(np.array_equal(store.planes.cpu().numpy().view(np.uint32), host.planes),
+          "the stager's planes differ from the host packer's")
+    records = np.empty((2, n), np.int32)
+    king_scatter.pack_records(records, rows, sites, n_alt)
+    records = torch.from_numpy(records).to(dev)
+    whole = torch.full_like(store.planes, -1)
+    king_scatter.scatter_records(whole, records)
+    plain = torch.full_like(store.planes, -1)
+    king_scatter.scatter_records_plain(plain, records)
+    torch.cuda.synchronize()
+    check(torch.equal(whole, store.planes), "one launch of every record differs")
+    check(torch.equal(plain, store.planes), "the plain version on the card differs")
+    del plain
+    kernel_ms = cuda_ms(lambda: king_scatter.scatter_records(whole, records), 20, 2)
+    plain_ms = cuda_ms(lambda: king_scatter.scatter_records_plain(whole, records), 3, 1)
+    clears = int((n_alt != 1).sum() + (n_alt != 2).sum())
+    bound_ms, _ = scatter_bound(n, clears)
+    say(f"phase 2c: scatter kernel == plain version == "
+        f"{'native packer' if packer.available() else 'numpy path'} on {n:,} entries "
+        f"({clears:,} clears) into {store.planes.nbytes / 1e9:.2f} GB of planes "
+        f"({sm.num_rows + sm.num_cols:,} samples, {layout.words:,} words): kernel "
+        f"{kernel_ms:.3f} ms a launch ({100 * bound_ms / kernel_ms:.1f}% of its "
+        f"{bound_ms:.3f} ms bound), plain {plain_ms:.1f} ms; the stager's send "
+        f"{send_ms:.1f} ms ({n / send_ms / 1e3:.1f}M entries/s, "
+        f"{-(-n // stager.slot_records)} chunks), the host packer {host_ms:.1f} ms ({card})")
+    del store, whole, records
+    torch.cuda.empty_cache()  # later phases size shards by the free memory
+    return {"entries": n, "clears": clears, "kernel_ms": kernel_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "send_ms": send_ms, "host_packer_ms": host_ms,
+            "phase_2c_launches": king_scatter.launches - first_launch}
+
+
 def phase_engine(card: str):
     import torch
 
@@ -803,7 +905,8 @@ def phase_engine(card: str):
     for i, j, ibs2 in zip(rs.i_idx, rs.j_idx, rs.ibs2):
         check(int(ibs2) == expected[(int(i), int(j))], f"ibs2 of ({i}, {j})")
     steps = len(engine._panel_pair_params())
-    check(launches == {k: steps for k in KERNELS}, f"{launches} launches in {steps} steps")
+    check(launches == {"king_counts": steps, "king_emit": steps, "king_scatter": 0},
+          f"{launches} launches in {steps} steps")
     pairs = n * (n - 1) // 2
     peak = torch.cuda.max_memory_allocated()
     say(f"phase 3: {n} x {SITES} engine: exactly the 64 planted pairs, kin == 0.5, "
@@ -939,7 +1042,7 @@ def phase_keep_all(card: str):
             results[run] = engine.run()
             times[run] = time.perf_counter() - t
             # The matmul engine counts through plain PyTorch products.
-            path_kernels = {"cuda": KERNELS, "matmul": ("king_emit",)}.get(run)
+            path_kernels = {"cuda": SWEEP_KERNELS, "matmul": ("king_emit",)}.get(run)
             if path_kernels:
                 launches = add_launches(
                     launches, read_launches(f"the {run} keep-all engine", path_kernels))
@@ -1008,14 +1111,15 @@ def phase_cli(tmp: str):
     for shard in range(3):
         run_cli(inp, f"{tmp}/split2", "--device", "cuda", "--split_factor", "2",
                 "--shard_index", str(shard))
-    launches = read_launches("the CLI")
+    launches = read_launches("the CLI", KERNELS)
     run_cli(inp, f"{tmp}/cpu", "--device", "cpu", "--kernel", "matmul")
     split1, split2, cpu = (_rows(f"{tmp}/{d}") for d in ("split1", "split2", "cpu"))
     check(len(split1) >= 5, f"CLI found {len(split1)} related pairs, expected >= 5")
     check(split2 == split1, "merged split-2 shards differ from the split-1 run")
     check(cpu == split1, "the cuda run differs from the CPU plain-path run")
     say(f"phase 5: CLI 1000 x 10000: {len(split1)} rows; split 2 merged == split 1 "
-        f"== --device cpu --kernel matmul, bit for bit; {launches} kernel launches")
+        f"== --device cpu --kernel matmul, bit for bit; {launches} kernel launches "
+        f"(planes built on the card)")
     return launches, inp, split1
 
 
@@ -1179,9 +1283,9 @@ def _free_port() -> int:
 _CHILD = (
     "import sys\n"
     "from cuking_tpu_torch import cli\n"
-    "from cuking_tpu_torch.ops import king_cuda, king_emit\n"
+    "from cuking_tpu_torch.ops import king_cuda, king_emit, king_scatter\n"
     "rc = cli.main(sys.argv[1:])\n"
-    "print('LAUNCHES', king_cuda.launches, king_emit.emit_launches)\n"
+    "print('LAUNCHES', king_cuda.launches, king_emit.emit_launches, king_scatter.launches)\n"
     "sys.exit(rc)\n"
 )
 
@@ -1206,8 +1310,9 @@ def phase_cli_mesh(tmp: str, inp: str, split1: list) -> dict:
     )
     check(proc.returncode == 0,
           f"--distributed exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
-    child = dict(zip(KERNELS, map(int, proc.stdout.split("LAUNCHES")[-1].split()[:2])))
-    check(min(child.values()) > 0, f"the --distributed run's launches: {child}")
+    child = dict(zip(KERNELS, map(int, proc.stdout.split("LAUNCHES")[-1].split()[:3])))
+    check(min(child[k] for k in SWEEP_KERNELS) > 0 and child["king_scatter"] == 0,
+          f"the --distributed run's launches (host planes, no scatter kernel): {child}")
     check("rank 0 of 1, 4 ring positions" in proc.stdout,
           "--distributed did not start a world of 1 with 4 positions")
     check(_rows(f"{tmp}/dist") == split1, "--distributed differs from phase 5")
@@ -1357,6 +1462,8 @@ def phase_fan_out(tmp: str, card: str) -> dict:
     launches = {}
     for k in range(group["taskCount"]):
         plain_s, log = run_task(plain_command, k)
+        check("bit planes on cuda:0." in log,
+              f"task {k} did not build its planes on the card:\n{log[-2000:]}")
         say(f"phase 10: task {k} without --profile_dir: exit 0, wall {plain_s:.3f} s, "
             f"{stages(log)} ({card})")
         wall_s, log = run_task(command, k)
@@ -1380,7 +1487,7 @@ def phase_fan_out(tmp: str, card: str) -> dict:
           "wait_for_completion wrote no _SUCCESS")
     reset_launches()
     run_cli(inp, f"{tmp}/fan_split1", "--device", "cuda")
-    read_launches("the split-1 reference run")
+    launches = add_launches(launches, read_launches("the split-1 reference run", KERNELS))
     merged, split1 = _rows(out), _rows(f"{tmp}/fan_split1")
     check(len(split1) >= 4, f"split 1 found {len(split1)} related pairs, expected >= 4")
     check(merged == split1, "the merged fan-out partitions differ from the split-1 run")
@@ -1388,7 +1495,7 @@ def phase_fan_out(tmp: str, card: str) -> dict:
           "the untraced fan-out partitions differ from the split-1 run")
     say(f"phase 10: 3 Batch tasks merged == split-1 CLI ({len(split1)} rows, kin bits), "
         f"traced and untraced; _SUCCESS written; {launches} kernel launches in the "
-        "tasks' traces")
+        "tasks' traces and the split-1 run")
     return launches
 
 
@@ -1403,7 +1510,7 @@ def phase_parity(card: str) -> dict:
     t = time.perf_counter()
     result = run_parity(PARITY_SAMPLES, PARITY_SITES, device="cuda",
                         log=lambda line: say(f"phase 11: {line}"))
-    launches = read_launches("the baseline parity CLI runs")
+    launches = read_launches("the baseline parity CLI runs", KERNELS)
     check(result["ok"], f"baseline parity: rows differ from the oracle: "
                         f"{result['differences']}")
     say(f"phase 11: baseline parity {PARITY_SAMPLES} x {PARITY_SITES} through the CLI on "
@@ -1617,7 +1724,7 @@ def phase_bench(card: str) -> dict:
     check(diag["ring_hits"] == diag["hits_emitted"],
           f"the ring's {diag['ring_hits']} hits, the engine's {diag['hits_emitted']}")
     launches = diag["launches_total"]
-    for name in KERNELS:
+    for name in SWEEP_KERNELS:
         check(launches[name] > 0, f"the bench launched no {name} kernel")
     say(f"phase 15: bench_torch.py exit 0, {line['value']:,} pairs/s, vs_baseline "
         f"{line['vs_baseline']}, all {BENCH_PLANTED_PAIRS:,} planted pairs and "
@@ -1725,7 +1832,7 @@ def phase_chip_probe(card: str) -> dict:
         f"kernel {e['kernel_ms']:.4f} ms a launch on its planes, {e['above_kernel_ms']:.4f} ms "
         f"a step above it; {clock_line('sweep', e['sweep']['clock'])} ({card})")
     launches = line["launches_total"]
-    for name in KERNELS:
+    for name in SWEEP_KERNELS:
         check(launches[name] > 0, f"the chip probe launched no {name} kernel")
     say(f"phase 17: tools/torch_chip_probe.py --quick exit 0, no failed check, every window "
         f"sampled, the counters of each data kind the plain version's; launches {launches}; "
@@ -1806,7 +1913,7 @@ def phase_off_diagonal(card: str) -> dict:
                     "cuda:0,cuda:0,cuda:0,cuda:0", *shard4)
         finally:
             ring._rect_ring_fn = rect_ring_fn
-        launches = read_launches("the off-diagonal CLIs")
+        launches = read_launches("the off-diagonal CLIs", KERNELS)
         split1, split5, engine4, ring4 = (read_output(f"{tmp}/{d}")
                                           for d in ("split1", "split5", "shard4", "ring4"))
     planted = expected_rows(small)
@@ -1891,7 +1998,8 @@ def phase_shard(card: str, isolated_1m_ms: float) -> tuple[dict, dict]:
     panels = SHARD_ROWS // 1024
     steps = r["steps"]
     check(steps == panels * (panels + 1) // 2, f"{steps} steps")
-    check(launches == {k: steps for k in KERNELS}, f"{launches} launches in {steps} steps")
+    check(launches == {"king_counts": steps, "king_emit": steps, "king_scatter": 0},
+          f"{launches} launches in {steps} steps")
     last = SHARD_ROWS - 1024
     max_err = compare_panel_pairs(
         engine.planes_dev, [("13a last diagonal pair", last, last, 1),
@@ -2034,7 +2142,8 @@ def main() -> int:
     phase_task_limit(card)  # before this process holds any device memory
     torch.cuda.set_device(0)
     phase_build()
-    records = {"king_counts": phase_kernel(card), "king_emit": phase_emit(card)}
+    records = {"king_counts": phase_kernel(card), "king_emit": phase_emit(card),
+               "king_scatter": phase_scatter(card)}
     launches = {}
     launches["engine"], engine_storage, engine_rs = phase_engine(card)
     launches["engine_early_stop"] = phase_early_stop(card, engine_storage)
@@ -2070,15 +2179,18 @@ def main() -> int:
     say(f"phase 18: {time.perf_counter() - t:.1f} s ({card})")
     # The emit kernel replaces no TPU kernel: the JAX package left the step
     # after the count kernel to XLA, and accumulate_hits is its compaction.
+    # The scatter kernel replaces none either: the JAX package scatters on
+    # the host and uploads the planes.
     replaces = {"king_counts": "cuking_tpu/ops/king_pallas.py:359",
-                "king_emit": "cuking_tpu/ops/compaction.py:95"}
+                "king_emit": "cuking_tpu/ops/compaction.py:95",
+                "king_scatter": "none: the host's scatter, cuking_tpu/ops/bitset.py clear_bits_coo"}
     say(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
         "source": f"cuking_tpu_torch/csrc/{name}.cu",
         "replaces": replaces[name],
-        "launches": sum(per_path[name] for per_path in launches.values()),
-        "launches_by_path": {path: per_path[name] for path, per_path in launches.items()},
+        "launches": sum(per_path.get(name, 0) for per_path in launches.values()),
+        "launches_by_path": {path: per_path.get(name, 0) for path, per_path in launches.items()},
         **records[name],
     } for name in KERNELS]}))
     say(json.dumps({"ok": True, "device": {

@@ -471,6 +471,8 @@ def _run_stages(args, storage: Storage, shard_index: int, devices: list[str],
                 mesh: RingMesh | None, logger) -> None:
     """The task's stages, from metadata to write, each a ``stage.<key>``
     span under the task's ``cli.task``."""
+    import torch
+
     logger.begin("Reading metadata...", "metadata")
     metadata = read_metadata(storage, args.input_uri)
     logger.end()
@@ -514,11 +516,19 @@ def _run_stages(args, storage: Storage, shard_index: int, devices: list[str],
         panel_storage = HostShardedStorage(
             layout, metadata.num_samples, mesh, submatrix=submatrix
         )
+    elif mesh is None and torch.device(config.device).type == "cuda":
+        # One engine on a card: the planes are built there by ingest's
+        # scatter, and the host holds none (ops/king_scatter.py).
+        panel_storage = PanelStorage(layout, submatrix, config.panel, device=config.device)
     else:
+        # The ring hands host panel blocks between positions; on a CPU
+        # device the host planes are the device's.
         panel_storage = PanelStorage(layout, submatrix, config.panel)
     logger.end()
-    mib = panel_storage.planes.nbytes >> 20
-    logger.print(f"Allocated {mib} MiB of memory for bit planes.")
+    planes = panel_storage.planes
+    mib = planes.nbytes >> 20
+    where = planes.device if isinstance(planes, torch.Tensor) else "the host"
+    logger.print(f"Allocated {mib} MiB of memory for bit planes on {where}.")
 
     logger.begin("Listing input files...", "listing")
     input_files = storage.list_parquet_files(args.input_uri)

@@ -45,13 +45,17 @@ GPU_TYPE = "nvidia-h100-80gb"
 #   memory.  An H100 80GB HBM3 has 81,079 MiB (``total_memory`` 85,017,493,504
 #   B), and free memory never exceeds it, so at most 74,592 MiB; the default
 #   buffers take 496 MiB (10,485,760 result slots x 24 B, plus 256 B x 1024²
-#   of transients), leaving at most 74,096 MiB of planes.  The host holds the
-#   same planes (``PanelStorage.planes``) while it ingests, and uploads them
-#   without a second host copy.  On the card (NVIDIA H100 80GB HBM3,
-#   700.00 W) a fresh process (``tools/torch_shard_at_scale.py``) was
-#   admitted 308,224 x 1,000,000, 73,491 MiB of planes, and peaked at
-#   78,378 MiB of host RSS; in ``chip_smoke.py`` phase 13b the RSS did not
-#   grow across the upload.
+#   of transients), leaving at most 74,096 MiB of planes.  A task rendered
+#   here runs one engine on its card, so ingest builds the planes there
+#   (``ops/king_scatter.py``) and the host holds none, only a 32 MiB pinned
+#   staging pool: for such a task this term is headroom.  It is kept for
+#   the runs that hold host planes (``PanelStorage.planes``) while they
+#   ingest and upload them without a second host copy: ``--use_mesh`` and
+#   ``--distributed``, and the tools.  On the card (NVIDIA H100 80GB HBM3,
+#   700.00 W) a fresh process with host planes
+#   (``tools/torch_shard_at_scale.py``) was admitted 308,224 x 1,000,000,
+#   73,491 MiB of planes, and peaked at 78,378 MiB of host RSS; in
+#   ``chip_smoke.py`` phase 13b the RSS did not grow across the upload.
 # * Ingest.  ``io/parquet_ingest.py`` keeps at most 2 files per decode
 #   worker in flight, one worker per CPU the task may run on: 52 files on
 #   the 26 vCPUs of ``a3-highgpu-1g``.  A file costs its bytes plus ~52 B

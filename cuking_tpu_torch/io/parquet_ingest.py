@@ -22,11 +22,19 @@ Schema contract (enforced like cuking.cu:585-671): exactly 3 columns, by
 position: row_idx INT64 (site), col_idx INT64 (sample), n_alt_alleles INT32.
 Column NAMES are not checked, matching the reference.
 
+Planes on a device (a ``PanelStorage`` built with ``device``, as the CLI
+builds it for one engine on a CUDA device) take a third path after the
+filter: each file's kept entries are checked on the host and sent as 8-byte
+records through a fixed pool of staging buffers to the scatter kernel
+(``ops/king_scatter.Stager``); ingest ends once the side stream's
+scatters are done.  Host planes keep the native packer and the numpy path.
+
 Spans (``utils/stopwatch.py``): per file ``ingest.read`` (the whole read,
 ``bytes``) on a reader thread, and ``ingest.decode`` (``entries``),
-``ingest.filter`` (``kept``) and ``ingest.scatter`` on a decode thread,
-each under the span open where ``ingest_parquet`` was called (the CLI's
-``stage.ingest``), and recorded when that one is.
+``ingest.filter`` (``kept``) and ``ingest.scatter`` (``entries`` sent to the
+planes, ``on_device`` 1 when the planes are on a CUDA device, else 0) on a
+decode thread, each under the span open where ``ingest_parquet`` was called
+(the CLI's ``stage.ingest``), and recorded when that one is.
 """
 
 from __future__ import annotations
@@ -35,10 +43,13 @@ import io
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+import torch
+
 from cuking_tpu_torch.io.uri import Storage
 from cuking_tpu_torch.native.packer import usable_cpus
 from cuking_tpu_torch.ops import bitset
-from cuking_tpu_torch.utils.status import FailedPreconditionError
+from cuking_tpu_torch.ops.king_scatter import Stager
+from cuking_tpu_torch.utils.status import FailedPreconditionError, UnknownError
 from cuking_tpu_torch.utils.stopwatch import StageLogger, current, span
 
 
@@ -85,7 +96,8 @@ def ingest_parquet(
     logger: StageLogger | None = None,
     use_native: bool | None = None,
 ) -> None:
-    """Populates ``panel_storage.planes`` from the input files in parallel.
+    """Populates ``panel_storage.planes`` from the input files in parallel;
+    planes on a device are filled there (the module docstring).
 
     Mirrors the ParallelFor ingest loop (cuking.cu:547-711): per file, read →
     decode → drop samples outside this shard's Submatrix → scatter bit-clears
@@ -97,8 +109,11 @@ def ingest_parquet(
     planes = panel_storage.planes
     layout = panel_storage.layout
 
+    stager = None
     native = None
-    if use_native is not False:
+    if isinstance(planes, torch.Tensor):
+        stager = Stager(planes, layout)
+    elif use_native is not False:
         try:
             from cuking_tpu_torch.native import packer as native_packer
 
@@ -108,6 +123,7 @@ def ingest_parquet(
         if use_native and native is None:
             raise FailedPreconditionError("Native packer requested but unavailable")
 
+    on_device = int(stager is not None and stager.cuda)
     scatter_lock = threading.Lock()
     progress = {"count": 0}
 
@@ -122,8 +138,10 @@ def ingest_parquet(
             row_idx, col_idx, n_alt = row_idx[keep], col_idx[keep], n_alt[keep]
             offsets = panel_storage.storage_offsets(col_idx)
             filtered.count(kept=len(n_alt))
-        with span("ingest.scatter", stage):
-            if native is not None:
+        with span("ingest.scatter", stage) as scatter:
+            if stager is not None:
+                stager.send(offsets, row_idx, n_alt, path)
+            elif native is not None:
                 # Lock-free: relaxed atomic AND per word, safe under concurrent
                 # writers exactly like the reference's AtomicClearBit
                 # (cuking.cu:316-323).
@@ -140,6 +158,7 @@ def ingest_parquet(
                 )
                 with scatter_lock:
                     bitset.apply_clear_masks(planes, prepared)
+            scatter.count(entries=len(n_alt), on_device=on_device)
         with scatter_lock:
             progress["count"] += 1
             if progress["count"] % 1024 == 0:
@@ -193,6 +212,11 @@ def ingest_parquet(
                 fut.result()
             except BaseException as e:
                 errors.append(e)
+    if stager is not None:
+        try:
+            stager.close()  # the sweep's stream waits on every scatter
+        except UnknownError as e:
+            errors.append(e)
     # Invalidate any device-side cache of the planes (KingEngine.planes_dev)
     # even on partial failure — some blocks may already have been scattered.
     panel_storage.mark_mutated()

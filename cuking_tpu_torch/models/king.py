@@ -38,7 +38,7 @@ Spans (``utils/stopwatch.py``, recorded while a ``torch.profiler`` records):
 ``engine.run`` around ``run()`` (``sweeps``, ``keep_all`` 0 or 1, and
 ``slots``, the hit buffer's as allocated); inside it ``engine.schedule``
 (``steps``; in an engine's first run only, as the schedule is kept),
-``engine.upload`` (when ``planes_dev`` uploads; ``bytes``),
+``engine.upload`` (when ``planes_dev`` uploads host planes; ``bytes``),
 ``engine.steps`` (the step loop, first launch to last; ``steps``), an
 ``engine.limit_wait`` per wait for a count copy, ``engine.count_read``
 (``total``), ``engine.fetch`` (``rows``, and ``bytes`` copied to the host)
@@ -190,14 +190,21 @@ class ResultSet:
 
 
 class PanelStorage:
-    """Padded on-host plane storage in the reference's shard layout.
+    """Padded plane storage in the reference's shard layout.
 
     The Submatrix i-range is stored first, then (for off-diagonal shards) the
     j-range (cuking.cu:171-175); each section is padded up to a panel multiple
     with all-missing samples so every panel has the same shape.
+
+    ``planes`` are on the host, a numpy uint32 array, unless ``device`` is
+    given: then they are an int32 tensor on that device, all ones, which
+    ingest fills in place (``ops/king_scatter.py``) and the engine sweeps
+    as it is.  The CLI passes a CUDA device for one engine; every other
+    caller keeps host planes.
     """
 
-    def __init__(self, layout: PlaneLayout, submatrix: Submatrix, panel: int):
+    def __init__(self, layout: PlaneLayout, submatrix: Submatrix, panel: int,
+                 device: torch.device | str | None = None):
         self.layout = layout
         self.submatrix = submatrix
         self.panel = panel
@@ -215,7 +222,11 @@ class PanelStorage:
             self.nc_pad = max(_ceil_div(self.nc, panel), 1) * panel
             self.j_store_base = self.nr_pad
             total = self.nr_pad + self.nc_pad
-        self.planes = bitset.allocate_planes(total, layout)
+        if device is None:
+            self.planes = bitset.allocate_planes(total, layout)
+        else:
+            self.planes = torch.full((2, total, layout.words), -1, dtype=torch.int32,
+                                     device=device)
 
     def mark_mutated(self) -> None:
         """Callers that write into ``planes`` (ingest) record it here so the
@@ -285,9 +296,12 @@ class KingEngine:
 
     @property
     def planes_dev(self) -> torch.Tensor:
-        """Device-resident int32 view of the planes; uploaded once per
-        storage version (ingest bumps it through ``mark_mutated``; direct
-        writes to ``storage.planes`` need ``refresh_planes()``)."""
+        """Device-resident int32 view of the planes: the storage's own when
+        they were built on the device, else uploaded once per storage
+        version (ingest bumps it through ``mark_mutated``; direct writes to
+        ``storage.planes`` need ``refresh_planes()``)."""
+        if isinstance(self.storage.planes, torch.Tensor):
+            return self.storage.planes
         version = self.storage.version
         if self._planes_dev_cache is None or self._planes_dev_version != version:
             self._planes_dev_cache = None  # free the old copy before uploading

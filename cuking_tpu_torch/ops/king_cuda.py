@@ -32,12 +32,14 @@ tensor launches the kernel or raises; nothing falls back.  The kernels are
 built with ``nvcc`` at first use, from the sources in ``csrc/``, into one
 library in ``_build/``, and bound through a plain C interface with ctypes;
 the library also holds the emit kernel (``csrc/king_emit.cu``), which
-``ops/king_emit.py`` launches.  The library
+``ops/king_emit.py`` launches, and ingest's scatter (``csrc/king_scatter.cu``),
+which ``ops/king_scatter.py`` launches.  The library
 is current while the SHA-256 of ``csrc/`` and the nvcc flags, stored beside
 it at build time, still matches: a digest and not a modification time, so
 that a library prebuilt into a container image stays current after ``COPY``
 gives the sources newer times (the runtime image has no ``nvcc``).  The
-library's C entries are ``king_counts_launch`` and ``king_emit_launch``.
+library's C entries are ``king_counts_launch``, ``king_emit_launch`` and
+``king_scatter_launch``.
 ``launches`` counts launches of the count kernel.  :func:`cluster_roles` is
 the host's one statement of the launch grid, the kernel's CTAs by role; a
 caller that reports a share of helper CTAs sums it over the shapes it
@@ -62,7 +64,8 @@ from cuking_tpu_torch.utils.status import (
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = (os.path.join(CSRC, "king_counts.cu"), os.path.join(CSRC, "king_emit.cu"))
+SOURCES = tuple(os.path.join(CSRC, name)
+                for name in ("king_counts.cu", "king_emit.cu", "king_scatter.cu"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libking_counts.so")
 DIGEST_PATH = os.path.join(BUILD_DIR, "libking_counts.sha256")
@@ -73,6 +76,7 @@ NVCC_FLAGS = [
 # C entries of the library.
 ENTRY = "king_counts_launch"     # the count kernel
 EMIT_ENTRY = "king_emit_launch"  # the emit kernel (ops/king_emit.py)
+SCATTER_ENTRY = "king_scatter_launch"  # ingest's scatter (ops/king_scatter.py)
 
 # The wgmma kernel's pair tile (i rows x j rows) and its CTAs per cluster,
 # along i (kWgBM, kWgBN, kCluster in csrc/king_counts.cu).
@@ -170,6 +174,9 @@ def build() -> str:
                 ctypes.c_int,      # keep_all
                 p, i64, p, p,      # out, capacity, count, stream
             ]
+            scatter = getattr(lib, SCATTER_ENTRY)
+            scatter.restype = ctypes.c_int
+            scatter.argtypes = [p, i64, p, i64, i64, p]  # records, n, planes, rows, words, stream
             _lib = lib
     return report
 

@@ -44,3 +44,12 @@ def emit_bound(pairs: int, hits: int) -> tuple[float, str]:
     t_bytes = (16 * pairs + 32 * hits) / PEAK_BYTES
     t_ops = 10 * pairs / PEAK_FP32_OPS
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
+
+
+def scatter_bound(entries: int, clears: int) -> tuple[float, str]:
+    """The least time (ms) one scatter launch could take over ``entries``
+    records that clear ``clears`` bits (one or two an entry), and what
+    bounds it: the records read once, 8 B an entry, and one 32 B sector
+    read and written back in place for each clear (the planes are far
+    larger than the L2, and the clears fall at random)."""
+    return 1e3 * (8 * entries + 32 * clears) / PEAK_BYTES, "bytes"

@@ -9,6 +9,13 @@ result buffer and the per-step transients — compare it with the device's
 free memory, and when it doesn't fit, raise InvalidArgument naming the
 **minimal split factor that does**.
 
+On one card the planes are built there during ingest, through a staging
+pool of ``STAGING_BYTES`` (``ops/king_scatter.Stager``) that is freed before the sweep
+allocates its buffers: ingest peaks at planes + pool, the sweep at planes +
+buffers, and the model takes the larger (the sweep's, in every
+configuration whose buffers hold at least the pool: the CLI's defaults hold
+240 MiB of result slots alone).
+
 The ring has its own model (``check_ring_fit``).  Several ring positions
 may share one device, so the need of a device is the need of one position
 times the positions it holds.
@@ -26,6 +33,10 @@ import torch
 
 from cuking_tpu_torch.parallel.submatrix import Submatrix
 from cuking_tpu_torch.utils.status import InvalidArgumentError
+
+# Device memory of ingest's staging pool on the card (ops/king_scatter.Stager),
+# held only while ingest fills planes there.
+STAGING_BYTES = 32 << 20
 
 # Fraction of the free device memory the sweep may plan to use: the caching
 # allocator rounds blocks up and fragments.
@@ -123,7 +134,8 @@ def check_engine_fit(
     if limit is None:
         return
     planes_b = engine_plane_bytes(submatrix, words, config.panel)
-    buffers_b = sweep_buffer_bytes(config, submatrix.unique_pairs)
+    # Ingest's staging pool and the sweep's buffers are never held at once.
+    buffers_b = max(sweep_buffer_bytes(config, submatrix.unique_pairs), STAGING_BYTES)
     need = planes_b + buffers_b
     if need <= limit:
         return
@@ -133,7 +145,7 @@ def check_engine_fit(
         # cohort's at k = 1, blocks (0, 1)'s above (shard 1, the largest).
         pairs = Submatrix.create(num_samples, k, min(k - 1, 1)).unique_pairs
         return (shard_plane_bytes(num_samples, k, words, config.panel)
-                + sweep_buffer_bytes(config, pairs))
+                + max(sweep_buffer_bytes(config, pairs), STAGING_BYTES))
 
     # Splitting shrinks the plane term (and a keep-all buffer); the
     # thresholded result-buffer term is k-independent.  If not even maximal

@@ -140,7 +140,7 @@ def test_prebuilt_library_loads_without_nvcc_after_copy(tmp_path, monkeypatch):
     def fake_cdll(path):
         loaded.append(path)
         return types.SimpleNamespace(**{name: types.SimpleNamespace() for name in (
-            king_cuda.ENTRY, king_cuda.EMIT_ENTRY)})
+            king_cuda.ENTRY, king_cuda.EMIT_ENTRY, king_cuda.SCATTER_ENTRY)})
 
     monkeypatch.setattr(ctypes, "CDLL", fake_cdll)
     monkeypatch.setattr(king_cuda, "_lib", None)
@@ -148,6 +148,7 @@ def test_prebuilt_library_loads_without_nvcc_after_copy(tmp_path, monkeypatch):
     assert loaded == [str(lib)]
     assert getattr(king_cuda._lib, king_cuda.ENTRY).restype is ctypes.c_int
     assert getattr(king_cuda._lib, king_cuda.EMIT_ENTRY).restype is ctypes.c_int
+    assert getattr(king_cuda._lib, king_cuda.SCATTER_ENTRY).restype is ctypes.c_int
 
 
 @pytest.mark.parametrize("change", ["source", "new_file", "flags", "no_digest", "no_library"])

@@ -557,3 +557,163 @@ def test_kernels_past_word_2_31_at_1m_sites(store_1m, i_off, tri):
         emit_hits_plain(got, ref, *args)
         assert int(hits.count) == int(ref.count) > 0
         assert _sorted_rows(hits) == _sorted_rows(ref)
+
+
+def _scatter_entries(storage, n: int, seed: int):
+    """(storage rows, sites, n_alt) of ``n`` random entries of the shard's
+    stored samples, every n_alt, a third of them repeats of earlier ones."""
+    rng = np.random.default_rng(seed)
+    samples = rng.choice(storage.submatrix.stored_sample_indices(), n)
+    sites = rng.integers(0, storage.layout.num_sites, n)
+    n_alt = rng.integers(0, 3, n).astype(np.int32)
+    dup = rng.integers(0, n, n // 3)
+    samples[: len(dup)], sites[: len(dup)] = samples[dup], sites[dup]
+    return storage.storage_offsets(samples), sites, n_alt
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sites,samples,split,shard", [
+    (1_000_000, 2_000, 5, 4),  # 31,252 words; off-diagonal, blocks (0, 4)
+    (93_511, 3_000, 1, 0),     # 2,924 words
+])
+def test_scatter_kernel_equals_the_native_packer(cuda_device, sites, samples, split, shard):
+    """One file of 1.5M entries, three staging slots' worth, through the
+    Stager's pinned buffers and side stream; and the same records in one
+    launch, and through the plain version on the card: all equal the native
+    packer's planes (the numpy path's where g++ is missing), bit for bit."""
+    from cuking_tpu_torch.native import packer
+    from cuking_tpu_torch.ops import bitset, king_scatter
+
+    layout = PlaneLayout.create(sites)
+    host = PanelStorage(layout, Submatrix.create(samples, split, shard), 128)
+    rows, site_idx, n_alt = _scatter_entries(host, 1_500_000, seed=sites)
+    if packer.available():
+        packer.clear_bits(host.planes, layout, rows, site_idx, n_alt)
+    else:
+        bitset.clear_bits_coo(host.planes, layout, rows, site_idx, n_alt)
+
+    dev = PanelStorage(layout, host.submatrix, 128, device=cuda_device)
+    stager = king_scatter.Stager(dev.planes, layout)
+    assert len(n_alt) > 2 * stager.slot_records
+    before = king_scatter.launches
+    stager.send(rows, site_idx, n_alt, "a file")
+    stager.close()
+    assert king_scatter.launches - before == -(-len(n_alt) // stager.slot_records)
+    assert np.array_equal(dev.planes.cpu().numpy().view(np.uint32), host.planes)
+
+    records = np.empty((2, len(n_alt)), np.int32)
+    king_scatter.pack_records(records, rows, site_idx, n_alt)
+    records = torch.from_numpy(records).to(cuda_device)
+    once = torch.full_like(dev.planes, -1)
+    king_scatter.scatter_records(once, records)
+    plain = torch.full_like(dev.planes, -1)
+    king_scatter.scatter_records_plain(plain, records)
+    torch.cuda.synchronize()
+    assert torch.equal(once, dev.planes) and torch.equal(plain, dev.planes)
+
+
+@pytest.mark.gpu
+def test_scatter_kernel_decodes_sites_past_2_29(cuda_device):
+    """Sites of 2**29 or more set a record's top bit: the kernel, the plain
+    version on the card and the numpy path agree there.  One stored row."""
+    from cuking_tpu_torch.ops import bitset, king_scatter
+
+    sites = (1 << 29) + (1 << 20)
+    layout = PlaneLayout.create(sites)
+    rng = np.random.default_rng(29)
+    n = 100_000
+    site_idx = np.concatenate([rng.integers(1 << 29, sites, n - 1000),
+                               rng.integers(0, 1 << 29, 1000)])
+    site_idx[:5000] = site_idx[5000:10_000]
+    rows = np.zeros(n, np.int64)
+    n_alt = rng.integers(0, 3, n).astype(np.int32)
+    host = np.full((2, 1, layout.words), 0xFFFFFFFF, np.uint32)
+    bitset.clear_bits_coo(host, layout, rows, site_idx, n_alt)
+    records = np.empty((2, n), np.int32)
+    king_scatter.pack_records(records, rows, site_idx, n_alt)
+    records = torch.from_numpy(records).to(cuda_device)
+    once = torch.full(host.shape, -1, dtype=torch.int32, device=cuda_device)
+    king_scatter.scatter_records(once, records)
+    plain = torch.full_like(once, -1)
+    king_scatter.scatter_records_plain(plain, records)
+    torch.cuda.synchronize()
+    assert np.array_equal(once.cpu().numpy().view(np.uint32), host)
+    assert torch.equal(plain, once)
+
+
+@pytest.mark.gpu
+def test_ingest_into_card_planes_equals_host_planes(cuda_device, tmp_path, monkeypatch):
+    """ingest_parquet into planes on the card, with staging slots of 4,096
+    records so each file goes in several chunks: the host planes bit for
+    bit, and the device's peak during ingest the planes and the pool."""
+    from cuking_tpu_torch.io.metadata import read_metadata
+    from cuking_tpu_torch.io.parquet_ingest import ingest_parquet
+    from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
+    from cuking_tpu_torch.io.uri import Storage
+    from cuking_tpu_torch.ops import king_scatter
+
+    g = random_genotypes(700, 20_000, missing_rate=0.05, seed=27, num_related_pairs=4)
+    inp = str(tmp_path / "in.parquet")
+    write_synthetic_input(Storage(), inp, g, num_partitions=4)
+    meta = read_metadata(Storage(), inp)
+    files = Storage().list_parquet_files(inp)
+    layout = PlaneLayout.create(meta.num_sites)
+    for split, shard in ((1, 0), (2, 1)):
+        sm = Submatrix.create(meta.num_samples, split, shard)
+        host = PanelStorage(layout, sm, 128)
+        ingest_parquet(Storage(), files, host)
+        for staging in (king_scatter.STAGING_BYTES, 4_096 * king_scatter.RECORD_BYTES):
+            monkeypatch.setattr(king_scatter, "STAGING_BYTES", staging)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated(cuda_device)
+            dev = PanelStorage(layout, sm, 128, device=cuda_device)
+            planes = torch.cuda.memory_allocated(cuda_device) - base
+            torch.cuda.reset_peak_memory_stats(cuda_device)
+            ingest_parquet(Storage(), files, dev)
+            peak = torch.cuda.max_memory_allocated(cuda_device) - base
+            assert peak <= planes + staging, (peak, planes, staging)
+            assert torch.cuda.memory_allocated(cuda_device) - base == planes
+            assert dev.version == 1
+            assert np.array_equal(dev.planes.cpu().numpy().view(np.uint32), host.planes)
+            del dev
+
+
+@pytest.mark.gpu
+def test_cli_task_builds_its_planes_on_the_card(cuda_device, tmp_path, capsys):
+    """A CLI task on the card: its planes on the device ("Allocated ... on
+    cuda:0"), every file's scatter ``on_device``, no ``engine.upload``, and
+    the rows of the same task on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuking_tpu_torch import cli
+    from cuking_tpu_torch.io.synthetic_input import write_synthetic_input
+    from cuking_tpu_torch.io.uri import Storage
+    from cuking_tpu_torch.io.writer import read_results_table
+    from cuking_tpu_torch.utils import stopwatch
+
+    g = random_genotypes(500, 4_000, missing_rate=0.05, seed=31, num_related_pairs=5)
+    inp = str(tmp_path / "in.parquet")
+    write_synthetic_input(Storage(), inp, g, num_partitions=3)
+    argv = ["--input_uri", inp, "--kin_threshold", "0.05", "--split_factor", "2",
+            "--shard_index", "1"]
+    stopwatch.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        assert cli.main(argv + ["--output_uri", str(tmp_path / "card"), "--device", "cuda"]) == 0
+    spans = stopwatch.recorded()
+    stopwatch.clear()
+    assert "bit planes on cuda:0." in capsys.readouterr().out
+    scatters = [s for s in spans if s.name == "ingest.scatter"]
+    assert len(scatters) == 3 and all(s.counts["on_device"] == 1 for s in scatters)
+    assert sum(s.counts["entries"] for s in scatters) > 0
+    assert not [s for s in spans if s.name == "engine.upload"]
+    assert cli.main(argv + ["--output_uri", str(tmp_path / "cpu"), "--device", "cpu"]) == 0
+
+    def rows(path):
+        t = read_results_table(Storage(), path)
+        return sorted(zip(*(t.column(c).to_pylist() for c in ("i", "j", "ibs0", "ibs1", "ibs2")),
+                          np.asarray(t.column("kin").to_numpy(), np.float32).view(np.uint32)
+                          .tolist()))
+
+    card = rows(str(tmp_path / "card"))
+    assert card == rows(str(tmp_path / "cpu")) and len(card) > 0

@@ -38,7 +38,7 @@ INGEST = ["ingest.read", "ingest.decode", "ingest.filter", "ingest.scatter"]
 TABLE = {
     "cli.task": {"shard_index"}, **{f"stage.{k}": set() for k in STAGES},
     "ingest.read": {"bytes"}, "ingest.decode": {"entries"}, "ingest.filter": {"kept"},
-    "ingest.scatter": set(), "engine.run": {"sweeps", "keep_all", "slots"},
+    "ingest.scatter": {"entries", "on_device"}, "engine.run": {"sweeps", "keep_all", "slots"},
     "engine.upload": {"bytes"}, "engine.schedule": {"steps"}, "engine.steps": {"steps"},
     "engine.limit_wait": set(), "engine.count_read": {"total"},
     "engine.fetch": {"rows", "bytes"}, "engine.sort": set(),
@@ -202,13 +202,17 @@ def test_ingest_phases_run_on_workers_under_the_ingest_stage(traced_task):
         assert all(s.parent == stage.id and s.tid != main for s in phase), name
         assert all(stage.start_ns <= s.start_ns <= s.end_ns <= stage.end_ns for s in phase)
     assert all(s.counts["bytes"] > 0 for s in named(spans, "ingest.read"))
-    # On each decode thread a file's decode, filter and scatter follow in turn.
+    # On each decode thread a file's decode, filter and scatter follow in turn,
+    # and the scatter sends the filter's kept entries to the host planes.
     entries = kept = 0
     for tid in {s.tid for s in named(spans, "ingest.decode")}:
         decodes = [s for s in named(spans, "ingest.decode") if s.tid == tid]
         filters = [s for s in named(spans, "ingest.filter") if s.tid == tid]
-        for d, f in zip(decodes, filters):
+        scatters = [s for s in named(spans, "ingest.scatter") if s.tid == tid]
+        for d, f, c in zip(decodes, filters, scatters):
             assert d.end_ns <= f.start_ns and f.counts["kept"] <= d.counts["entries"]
+            assert f.end_ns <= c.start_ns
+            assert c.counts == {"entries": f.counts["kept"], "on_device": 0}
             entries += d.counts["entries"]
             kept += f.counts["kept"]
     assert 0 < kept < entries

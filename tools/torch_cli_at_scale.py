@@ -60,7 +60,8 @@ The tool writes the input (timed, outside every other window), then:
 1. runs ``python3 -m cuking_tpu_torch.cli``'s ``main`` in a child process
    pinned to 26 CPUs (``a3-highgpu-1g``'s vCPUs, or all the process may use
    when it has fewer), untraced: its wall time, every stage of its log, the
-   plane upload (timed around the engine's ``planes_dev``), the kernels'
+   plane upload (timed around the engine's ``planes_dev``; none when the CLI
+   builds the planes on the card), the kernels'
    launches read in that process, and its peak RSS beside the planes
    against ``batch_submit.py``'s ingest and process terms; then, in the
    same process, the planes of sampled rows (rows 0 and N - 1, every
@@ -626,6 +627,7 @@ class IngestSplit:
 
         from cuking_tpu_torch.io import parquet_ingest
         from cuking_tpu_torch.native import packer
+        from cuking_tpu_torch.ops import king_scatter
 
         packer_threads = setting.get("packer_threads")
         if "arrow_threads" in setting:
@@ -665,6 +667,16 @@ class IngestSplit:
             return clear_bits(*args, **kw)
 
         packer.clear_bits = self._timed("scatter", clear_bits_forced)
+        send = king_scatter.Stager.send
+
+        def send_counted(stager, rows, sites, n_alt, source):
+            # Planes on the card: each file's kept entries go to the
+            # scatter kernel through the stager.
+            with self._lock:
+                self.kept += len(n_alt)
+            return send(stager, rows, sites, n_alt, source)
+
+        king_scatter.Stager.send = self._timed("scatter", send_counted)
 
     def _timed(self, stage: str, fn):
         def wrapped(*args, **kw):
@@ -691,14 +703,12 @@ def child() -> None:
 
 
 def _task_child(spec: dict, rss: PeakRss) -> None:
-    import gc
-
     import torch
 
     from cuking_tpu_torch import cli
     from cuking_tpu_torch.models.king import KingEngine
     from cuking_tpu_torch.native import packer
-    from cuking_tpu_torch.ops import king_cuda, king_emit
+    from cuking_tpu_torch.ops import king_cuda, king_emit, king_scatter
     from cuking_tpu_torch.utils.hbm import (
         device_bytes_limit,
         engine_plane_bytes,
@@ -730,15 +740,12 @@ def _task_child(spec: dict, rss: PeakRss) -> None:
     cuda = spec["device"].startswith("cuda")
 
     def planes_dev_timed(engine):
-        if engine._planes_dev_cache is not None:
+        # Planes built on the card by ingest are not uploaded.
+        if engine._planes_dev_cache is not None or isinstance(engine.storage.planes,
+                                                               torch.Tensor):
             return planes_dev(engine)
-        captured["config"] = engine.config
         if cuda:
-            gc.collect()
             torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            upload["base"] = torch.cuda.memory_allocated()
         t = time.perf_counter()
         out = planes_dev(engine)
         if cuda:
@@ -747,17 +754,24 @@ def _task_child(spec: dict, rss: PeakRss) -> None:
         return out
 
     KingEngine.planes_dev = property(planes_dev_timed)
-    king_cuda.launches = king_emit.emit_launches = 0
+    king_cuda.launches = king_emit.emit_launches = king_scatter.launches = 0
+    if cuda:  # the task's own device peak: planes, then ingest's pool or the sweep's buffers
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     t = time.perf_counter()
     rc = cli.main(spec["argv"])
     task_s = time.perf_counter() - t
     out = {"rc": rc, "task_s": task_s, "upload_s": upload.get("s"),
-           "launches": {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches},
+           "launches": {"king_counts": king_cuda.launches, "king_emit": king_emit.emit_launches,
+                        "king_scatter": king_scatter.launches},
            "peak_rss": rss.readings(), "usable_cpus": packer.usable_cpus(), "fit": fit}
-    if cuda and "base" in upload:
-        fit["peak_device_bytes"] = torch.cuda.max_memory_allocated() - upload["base"]
+    if cuda:
+        fit["peak_device_bytes"] = torch.cuda.max_memory_allocated() - base
     if rc == 0:
         st, split = captured["storage"], captured["split"]
+        on_card = isinstance(st.planes, torch.Tensor)
+        planes = st.planes.cpu().numpy().view(np.uint32) if on_card else st.planes
+        out["planes_on"] = str(st.planes.device) if on_card else "host"
         cohort = Cohort(**spec["cohort"])
         rows = checked_rows(cohort)
         t = time.perf_counter()
@@ -766,20 +780,21 @@ def _task_child(spec: dict, rss: PeakRss) -> None:
         out["panel"] = st.panel
         out["steps"] = shard_steps(cohort.samples, cohort.split_factor,
                                    st.panel)[cohort.shard_index]
-        out["planes_bytes"] = st.planes.nbytes
-        out["stored_rows"] = st.planes.shape[1]
+        out["planes_bytes"] = planes.nbytes
+        out["host_planes_bytes"] = 0 if on_card else planes.nbytes
+        out["stored_rows"] = planes.shape[1]
         out["rows_checked"] = len(rows)
         in_j = np.zeros(len(rows), bool) if st.submatrix.is_diagonal else offsets >= st.j_store_base
         out["sections_checked"] = [int((~in_j).sum()), int(in_j.sum())]
         out["offsets_differing"] = rows[offsets != layout_rows(st.submatrix, st.panel, rows)
                                         ].tolist()[:10]
-        out["rows_differing"] = plane_mismatches(st.planes, offsets, cohort,
+        out["rows_differing"] = plane_mismatches(planes, offsets, cohort,
                                                  rows, threads=len(spec["cpus"]))
         pad = padding_rows(st)
         out["padding_rows"] = len(pad)
-        out["padding_not_missing"] = pad[(st.planes[:, pad] != 0xFFFFFFFF).any(axis=(0, 2))
+        out["padding_not_missing"] = pad[(planes[:, pad] != 0xFFFFFFFF).any(axis=(0, 2))
                                          ].tolist()[:10]
-        out["plane_tallies"] = plane_tallies(st.planes, threads=len(spec["cpus"]))
+        out["plane_tallies"] = plane_tallies(planes, threads=len(spec["cpus"]))
         out["check_s"] = time.perf_counter() - t
     print(json.dumps(out), flush=True)
 
@@ -916,11 +931,12 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
         check(out["rc"] == 0, f"the CLI task exited {out['rc']}:\n{task_log[-4000:]}")
         peak = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss << 10
         stages = stage_seconds(task_log)
-        stages["upload"] = out["upload_s"]
-        stages["sweep"] = stages["king_kernel"] - out["upload_s"]
+        # Planes built on the card by ingest are not uploaded.
+        stages["upload"] = out["upload_s"] or 0.0
+        stages["sweep"] = stages["king_kernel"] - stages["upload"]
         # The task's own peak, read in the child before its checks ran.
         own, source = own_peak(out["peak_rss"])
-        beside = (own - out["planes_bytes"]) / 2**20
+        beside = (own - out["host_planes_bytes"]) / 2**20
         fit = out["fit"]
         result["task"] = {
             "wall_s": wall, "main_s": out["task_s"], "stages_s": stages,
@@ -929,7 +945,8 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
             "launches": out["launches"], "fit": fit, "panel": out["panel"],
             "rusage_children_maxrss_bytes": peak, "peak_rss_before_checks": out["peak_rss"],
             "parent_rss_before_it": parent_rss, "peak_rss_bytes": own,
-            "planes_bytes": out["planes_bytes"], "stored_rows": out["stored_rows"],
+            "planes_bytes": out["planes_bytes"], "planes_on": out["planes_on"],
+            "stored_rows": out["stored_rows"],
             "rss_beside_planes_mib": beside,
             "rows_checked": out["rows_checked"], "sections_checked": out["sections_checked"],
             "rows_differing": out["rows_differing"][:10],
@@ -941,11 +958,14 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
         say(f"task: exit 0, the process {wall:.1f} s (the CLI's main {out['task_s']:.1f} s, "
             f"the checks after it {out['check_s']:.1f} s) on {len(task)} CPUs; stages "
             + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
+        upload = (f"upload {stages['upload']:.3f} s "
+                  f"({out['planes_bytes'] / stages['upload'] / 1e9:.2f} GB/s)"
+                  if out["upload_s"] else "no upload")
         say(f"task: allocation {stages['allocate']:.3f} s for {out['planes_bytes']:,} B of "
-            f"planes ({out['stored_rows']:,} stored rows); ingest {stages['ingest']:.3f} s, "
-            f"{out['ingest_entries']:,} entries read ({out['ingest_entries'] / stages['ingest'] / 1e6:.2f}M/s), "
-            f"{out['ingest_kept']:,} kept; upload {stages['upload']:.3f} s "
-            f"({out['planes_bytes'] / stages['upload'] / 1e9:.2f} GB/s); sweep "
+            f"planes on {out['planes_on']} ({out['stored_rows']:,} stored rows); ingest "
+            f"{stages['ingest']:.3f} s, {out['ingest_entries']:,} entries read "
+            f"({out['ingest_entries'] / stages['ingest'] / 1e6:.2f}M/s), "
+            f"{out['ingest_kept']:,} kept; {upload}; sweep "
             f"{stages['sweep']:.3f} s, {t['steps']:,} steps at panel {out['panel']}, "
             f"{t['sweep_ms_per_step']:.3f} ms a step")
         if "peak_device_bytes" in fit:
@@ -958,7 +978,7 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
             f"checks, its own ({source}; its ru_maxrss {out['peak_rss']['ru_maxrss_bytes'] / 2**20:,.0f} "
             f"MiB and RUSAGE_CHILDREN {peak / 2**20:,.0f} MiB, with the checks, can hold this "
             f"process's peak, {parent_rss['ru_maxrss_bytes'] / 2**20:,.0f} MiB), "
-            f"{beside:,.0f} MiB beside the planes' {out['planes_bytes'] / 2**20:,.0f} MiB "
+            f"{beside:,.0f} MiB beside the host's planes' {out['host_planes_bytes'] / 2**20:,.0f} MiB "
             f"(batch_submit.py: {INGEST_TERM_MIB:,} + {PROCESS_TERM_MIB:,} MiB beside them, "
             f"{DEFAULT_MEMORY_MIB:,} MiB requested in all); checks {out['check_s']:.1f} s: "
             f"{out['rows_checked']:,} rows' planes ({out['sections_checked']} in the i / j "
@@ -1008,8 +1028,13 @@ def run_cell(cohort: Cohort, workdir: str, *, device: str = "cuda", task_cpus: i
         failures.append(f"output rows differ from the planted pairs: {diff}")
     if device.startswith("cuda"):
         steps = t["steps"]
-        if t["launches"] != {"king_counts": steps, "king_emit": steps}:
-            failures.append(f"launches {t['launches']}, expected {steps} of each kernel")
+        sweep = {k: t["launches"][k] for k in ("king_counts", "king_emit")}
+        if sweep != {"king_counts": steps, "king_emit": steps}:
+            failures.append(f"launches {t['launches']}, expected {steps} of each sweep kernel")
+        # One engine on a card: ingest builds the planes there.
+        if not (t["planes_on"].startswith("cuda") and t["launches"]["king_scatter"] > 0):
+            failures.append(f"the planes on {t['planes_on']}, {t['launches']['king_scatter']} "
+                            "scatter launches: not built on the card")
         if not t["fit"].get("peak_device_bytes", np.inf) <= t["fit"]["model_bytes"]:
             failures.append(f"peak device memory {t['fit'].get('peak_device_bytes')} B "
                             f"over check_engine_fit's model {t['fit']['model_bytes']} B")
