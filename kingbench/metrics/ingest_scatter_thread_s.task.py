@@ -1,7 +1,9 @@
 """Ingest's scatter in a task cell, in thread-seconds per task: the
-``ingest.scatter`` spans (each file's bit clears into the planes, by the
-native packer or the numpy path with its lock, on a decode thread) summed
-over the window's tasks and their threads, over the tasks.  The threads
+``ingest.scatter`` spans (each file's bit clears into the planes, on a
+decode thread: on one card's planes the checks, packing and enqueued
+copies and launches of the scatter kernel; on host planes the native
+packer or the numpy path with its lock) summed over the window's tasks
+and their threads, over the tasks.  The threads
 overlap, so the sum can pass the ingest stage's wall time.  It moves
 ``task_s``."""
 

@@ -1,6 +1,7 @@
 """The CLI's "Running KING kernel for..." stage, in s, the mean over the
-window's tasks: the engine's plane upload, its sweep and the count read
-(the rows' fetch and sort follow the stage).  It moves ``task_s``."""
+window's tasks: the engine's sweep and the count read, after the plane
+upload where the planes are on the host (the rows' fetch and sort follow
+the stage).  It moves ``task_s``."""
 
 
 def read(ctx: dict) -> float | None:

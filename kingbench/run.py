@@ -1,5 +1,5 @@
-"""Runs one cell of ``BENCHMARK.json`` on one NVIDIA H100 and prints one
-JSON line last.
+"""Runs one cell of ``BENCHMARK.json`` on its NVIDIA H100s (one card, or
+the cell's ``chips`` cards of one host) and prints one JSON line last.
 
     python kingbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -10,17 +10,21 @@ metric is read by ``kingbench/metrics/<metric>.py``.  All are found by
 name, so a new cell or metric adds files and edits none.
 
 Set-up (``setup_s``, from this file's first line to the window's start)
-covers the imports, the CUDA context, loading the port's kernel library and
-native packer (built inside the checkout on a first run), making the
-inputs from ``--seed`` and one warm unit.  The window then runs whole units
-(a sweep, or a task), one after another, until ``--seconds`` have passed,
-each ending on the host with the device synchronised.  With ``--trace 1``
-the window runs under ``torch.profiler`` and the line holds the per-layer
-metrics; with ``--trace 0`` the end-to-end ones.  After the window the
-port's state is dropped, the reference recomputes the shard, and every
-output of the window is compared with it (``check.py``): the numbers
-compared, each beside its limit, are the last lines on standard error and
-the last key of the line.
+covers the imports, the CUDA context on each of the cell's cards, loading
+the port's kernel library and native packer (built inside the checkout on
+a first run), making the inputs from ``--seed`` and one warm unit.  The
+window then runs whole units (a sweep, or a task), one after another,
+until ``--seconds`` have passed, each ending on the host with every card
+of the cell synchronised.  A mode is handed its cards as the CLI's
+``--device`` takes them: ``cuda`` for one, ``cuda:0,cuda:1,...`` for
+several.  The peak device memory is the fullest card's, and a traced
+run's busy time is a card's mean (a card with no device operation counts
+as idle).  With ``--trace 1`` the window runs under ``torch.profiler`` and
+the line holds the per-layer metrics; with ``--trace 0`` the end-to-end
+ones.  After the window the port's state is dropped, the reference
+recomputes the shard, and every output of the window is compared with it
+(``check.py``): the numbers compared, each beside its limit, are the last
+lines on standard error and the last key of the line.
 
 Exits 2 without a card (or with fewer than the cell asks for), 3 when a
 module of JAX or of the JAX package was loaded, 1 on an error; in each case
@@ -95,32 +99,63 @@ def power_limit() -> str:
                              timeout=30)
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi: {e}"
-    return out.stdout.strip() or out.stderr.strip()
+    return "; ".join(out.stdout.strip().splitlines()) or out.stderr.strip()
+
+
+def cards(device: str, chips: int) -> list[str]:
+    """The devices of a cell of ``chips`` cards: ``device`` itself for one;
+    for several, ``cuda:0`` ... ``cuda:{chips - 1}``.  A mode gets them
+    joined by commas, as ``--device`` takes them."""
+    if chips == 1:
+        return [device]
+    return [f"cuda:{k}" for k in range(chips)]
+
+
+def synchronize(devices: list[str]) -> None:
+    """Waits until every one of the cards has finished its work."""
+    import torch
+
+    for d in devices:
+        torch.cuda.synchronize(d)
+
+
+def memory_peak(devices: list[str]) -> tuple[int, dict]:
+    """(the fullest card's peak device memory, each card's), in bytes,
+    since their last reset."""
+    import torch
+
+    peaks = {d: torch.cuda.max_memory_allocated(d) for d in devices}
+    return max(peaks.values()), peaks
 
 
 def run_cell(manifest: dict, name: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", t0: float = T0, spec: tuple | None = None) -> dict:
-    """Runs the cell and returns its result (without the import check);
-    ``spec`` gives (cell, configuration, traffic) in place of the files."""
+    """Runs the cell on its cards and returns its result (without the
+    import check); ``spec`` gives (cell, configuration, traffic) in place
+    of the files."""
     import torch
 
     from kingbench import check, tracing
 
-    _, config, traffic = spec or cell_spec(manifest, name)
+    cell, config, traffic = spec or cell_spec(manifest, name)
     mode = importlib.import_module(f"kingbench.modes.{traffic['mode']}")
+    chips = cell["chips"]
+    devices = cards(device, chips)
     cuda = torch.device(device).type == "cuda"
     stamps = [("imports", time.perf_counter())]
     if cuda:
-        torch.empty(1, device=device)
+        for d in devices:
+            torch.empty(1, device=d)
     stamps.append(("cuda context", time.perf_counter()))
-    session = mode.Session(config, traffic, seed, device)
+    session = mode.Session(config, traffic, seed, ",".join(devices))
     stamps.append(("data", time.perf_counter()))
     try:
         if not session.ok(session.once()):  # the warm unit
             raise RuntimeError(f"the warm {session.unit} failed")
         if cuda:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            synchronize(devices)
+            for d in devices:
+                torch.cuda.reset_peak_memory_stats(d)
         stamps.append((f"warm {session.unit}", time.perf_counter()))
         setup_s = time.perf_counter() - t0
         split = [(k, b - a) for (k, b), (_, a) in zip(stamps, [("", t0)] + stamps)]
@@ -133,21 +168,22 @@ def run_cell(manifest: dict, name: str, seed: int, seconds: float, trace: bool,
                 with tracing.unit_marker() if trace else contextlib.nullcontext():
                     out = session.once()
                 if cuda:
-                    torch.cuda.synchronize()
+                    synchronize(devices)
                 b = time.perf_counter()
                 outputs.append(out)
                 marks.append((a, b))
                 if b - start >= seconds or not session.ok(out):
                     break
             wall = time.perf_counter() - start
-        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        peak, peaks = memory_peak(devices) if cuda else (0, {})
         failed = sum(1 for o in outputs if not session.ok(o))
         done = len(outputs) - failed
 
         result = {"attempted": len(outputs), "failed": failed}
         if trace:
-            ctx = _trace_context(session, prof["trace"], outputs, marks, wall, traffic["mode"])
-            device_info = {"busy_s": ctx["trace"]["busy_union_ms"] / 1e3,
+            ctx = _trace_context(session, prof["trace"], outputs, marks, wall, traffic["mode"],
+                                 chips)
+            device_info = {"busy_s": tracing.mean_busy_ms(ctx["trace"], chips) / 1e3,
                            "window_s": ctx["trace"]["trace_span_ms"] / 1e3}
             values = {}
             for m in metrics_of(manifest, "per_layer", name):
@@ -165,9 +201,11 @@ def run_cell(manifest: dict, name: str, seed: int, seconds: float, trace: bool,
         result["metrics"] = values
         result["device"] = {"platform": "gpu" if cuda else "cpu",
                             "kind": torch.cuda.get_device_name() if cuda else "cpu",
-                            "count": 1, "memory_peak_bytes": int(peak), **device_info}
+                            "count": chips, "memory_peak_bytes": int(peak), **device_info}
         if cuda:
             print(f"card: {power_limit()}", file=sys.stderr)
+            print("peak per card: " + ", ".join(f"{d} {p} B" for d, p in peaks.items()),
+                  file=sys.stderr)
         print(f"window: {done} {session.unit}s in {wall:.3f} s: "
               + " ".join(f"{b - a:.3f}" for a, b in marks), file=sys.stderr)
         notes = session.notes(outputs)
@@ -192,15 +230,16 @@ def run_cell(manifest: dict, name: str, seed: int, seconds: float, trace: bool,
 
 
 def _trace_context(session, trace: dict, outputs: list, marks: list, wall: float,
-                   mode: str) -> dict:
+                   mode: str, chips: int) -> dict:
     """What the per-layer readers read: the frozen ``analyze``'s reading,
-    the units done, the window's wall time, the mode's own context, and the
-    breakdown of device operations and labelled idle gaps."""
+    the units done, the window's wall time, the cell's cards, the mode's
+    own context, and the breakdown of device operations and labelled idle
+    gaps (stretches in which no card ran anything)."""
     from kingbench import tracing
 
     stats, events, window = tracing.read_window(trace)
     units = sum(1 for o in outputs if session.ok(o))
-    ctx = {"trace": stats, "units": units, "wall_s": wall, "mode": mode}
+    ctx = {"trace": stats, "units": units, "wall_s": wall, "mode": mode, "chips": chips}
     ctx.update(session.layer_context(outputs))
     spans = tracing.host_spans(trace)
     # Host clock (s) → trace clock (us), from the first unit's annotation.

@@ -1,6 +1,6 @@
 """The export mode (``modes/export.py``) on the CPU: a whole tiny run of the
 cell ``kgp30x.export``'s traffic comes out correct, traced and untraced,
-with the span readers' metrics on the traced line; a port that drops one
+with the span readers' metrics and the task stages' on the traced line; a port that drops one
 row, or writes the threshold path's rows in the keep-all path's place,
 comes out not correct; a port without ``--keep_all`` stops before any
 input is drawn; the keep-all reference holds every pair, NaN and -inf kin
@@ -25,6 +25,10 @@ from kingbench.tests.tiny import MANIFEST, SEED
 
 NAME = "kgp30x.export"
 SPANS = {"result_sort_s.export", "result_fetch_gbps.export", "writer_rows_per_s.export"}
+# The task stages' readers that need no card (the idle share needs device events).
+STAGES = {"ingest_entries_per_s.task", "ingest_read_thread_s.task",
+          "ingest_decode_thread_s.task", "ingest_filter_thread_s.task",
+          "ingest_scatter_thread_s.task", "allocate_s.task", "king_stage_s.task"}
 
 
 def spec(samples: int = 300, sites: int = 500):
@@ -53,8 +57,10 @@ def test_tiny_export_run_is_correct(trace):
     assert r["correct"] and r["failed"] == 0 and r["attempted"] >= 1
     assert all(c["value"] == 0 for c in r["checks"].values())
     if trace:
-        assert SPANS <= set(r["metrics"])  # the emit roofline needs a card
+        assert SPANS | STAGES <= set(r["metrics"])  # the emit roofline needs a card
         assert all(r["metrics"][m]["value"] > 0 for m in SPANS)
+        # A tiny task's allocation reads 0.000 s in the CLI's log.
+        assert all(r["metrics"][m]["value"] >= 0 for m in STAGES)
     else:
         assert set(r["metrics"]) == {"setup_s", "task_s", "peak_device_gib"}
 

@@ -5,8 +5,8 @@ card is the only part skipped) with one fault planted in the port: half of
 the sweep's steps left out; a step that leaves its hit buffer unchanged;
 an answer altered where it is produced (a kin bit in the engine's rows, a
 row in the task's partition); half of a task's input left unread.  The
-exchange between chips has no fault to plant: every cell runs on one
-card."""
+exchange between chips has no fault to plant: every cell of today's
+``BENCHMARK.json`` runs on one card."""
 
 import numpy as np
 import pyarrow.parquet  # noqa: F401  (imported here first: see generate.write_input)

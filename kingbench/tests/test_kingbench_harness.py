@@ -126,7 +126,7 @@ def test_idle_gaps_are_labelled_by_the_host():
     gaps = tracing.idle_gaps(dev, window, lambda t: "inside" if any(
         s <= t <= e for s, e in spans) else "between")
     assert gaps == [["inside", 250e-6], ["inside", 100e-6], ["inside", 90e-6]]
-    assert tracing.idle_share({"trace": stats}) == pytest.approx(100 * (1 - 60 / 500))
+    assert tracing.idle_share({"trace": stats, "chips": 1}) == pytest.approx(100 * (1 - 60 / 500))
     assert tracing.device_ops(dev)[0] == ["king_counts_wgmma_kernel", 50e-6]
 
 

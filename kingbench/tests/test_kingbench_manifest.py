@@ -64,13 +64,41 @@ def test_each_cell_finds_its_files_and_reports_what_it_must(cell):
     assert sorted(conf["reduced"]) == sorted(config["reduced"])
     traffic = run.load_json(run.HERE, "workloads", cell["traffic"] + ".json")
     assert os.path.exists(os.path.join(run.HERE, "modes", traffic["mode"] + ".py"))
-    assert cell["chips"] == 1
+    assert cell["chips"] in (1, 4)
     e2e = [m["name"] for m in run.metrics_of(M, "end_to_end", cell["name"])]
     layers = run.metrics_of(M, "per_layer", cell["name"])
     assert "setup_s" in e2e and len(e2e) >= 2 and layers
     for m in layers:
         assert m["moves"] in e2e, (m["name"], cell["name"])
         assert os.path.exists(os.path.join(run.HERE, "metrics", m["name"] + ".py"))
+
+
+def four_card_cells_allowed(workloads: list[dict]) -> bool:
+    """Every cell asks for 1 or 4 cards, and at most max(1, cells // 4) for
+    4."""
+    four = sum(1 for w in workloads if w["chips"] == 4)
+    return (all(w["chips"] in (1, 4) for w in workloads)
+            and four <= max(1, len(workloads) // 4))
+
+
+def _cells(*chips):
+    return [{"name": f"c{k}", "chips": n} for k, n in enumerate(chips)]
+
+
+@pytest.mark.parametrize("workloads,allowed", [
+    (M["workloads"], True),
+    (_cells(1, 1, 1, 1, 4), True),
+    (_cells(4), True),
+    (_cells(1, 4), True),
+    (_cells(1, 1, 1, 4, 4, 1, 1, 1), True),
+    (_cells(1, 1, 1, 4, 4), False),
+    (_cells(4, 4), False),
+    (_cells(1, 1, 1, 1, 2), False),
+    (_cells(8), False),
+], ids=["BENCHMARK.json", "one_of_five", "one_of_one", "one_of_two", "two_of_eight",
+        "two_of_five", "two_of_two", "two_cards", "eight_cards"])
+def test_cells_take_one_or_four_cards_and_few_take_four(workloads, allowed):
+    assert four_card_cells_allowed(workloads) is allowed
 
 
 def test_each_metric_moves_one_end_to_end_metric_and_layers_are_named_alike():

@@ -1,4 +1,4 @@
-"""The readers of the port's spans (``kingbench/spans.py`` and the seven
+"""The readers of the port's spans (``kingbench/spans.py`` and the six
 metrics that use it) on the CPU: each reads a real traced tiny run and
 None without spans or without a recorder; the two sweep readers subtract
 what they say; and the stage parser reads the CLI's six stages from its
@@ -26,8 +26,7 @@ STAGES = {"metadata", "allocate", "listing", "ingest", "king_kernel", "write"}
 READERS = {  # metric → the traced run whose spans it reads
     "ingest_read_thread_s.task": "task", "ingest_decode_thread_s.task": "task",
     "ingest_filter_thread_s.task": "task", "ingest_scatter_thread_s.task": "task",
-    "upload_gbps.task": "task", "step_enqueue_us.sweep": "sweep",
-    "sweep_edges_ms.sweep": "sweep",
+    "step_enqueue_us.sweep": "sweep", "sweep_edges_ms.sweep": "sweep",
 }
 
 
@@ -94,9 +93,6 @@ def test_sweep_edges_and_enqueue_readers_subtract_what_they_say(monkeypatch):
     monkeypatch.setattr(stopwatch, "_spans", spans)
     assert run.reader("sweep_edges_ms.sweep")({"units": 1}) == pytest.approx(2.0)
     assert run.reader("step_enqueue_us.sweep")({"units": 1}) == pytest.approx(1500)
-    monkeypatch.setattr(stopwatch, "_spans", [
-        stopwatch.Span("engine.upload", 1, None, 1, 5, 0, 500_000_000, {"bytes": 3 * 10**9})])
-    assert run.reader("upload_gbps.task")({"units": 1}) == pytest.approx(6.0)
 
 
 @pytest.mark.parametrize("traced", [False, True])

@@ -67,8 +67,8 @@ def device_ops(events) -> list:
 
 def idle_gaps(events, window: tuple[float, float], label) -> list:
     """[label, seconds] of the longest stretches of the traced window in
-    which no device operation ran, ``label(t_us)`` naming what the host was
-    doing at a gap's middle."""
+    which no device operation ran on any card, ``label(t_us)`` naming what
+    the host was doing at a gap's middle."""
     busy = frozen_trace._merged((e.start, e.end) for e in events)
     edges = [window[0]] + [x for s, e in busy for x in (s, e)] + [window[1]]
     gaps = [(edges[k], edges[k + 1]) for k in range(0, len(edges), 2)
@@ -84,11 +84,19 @@ def read_window(trace: dict) -> tuple[dict, list, tuple[float, float] | None]:
     return frozen_trace.analyze(trace), events, window
 
 
+def mean_busy_ms(stats: dict, chips: int) -> float:
+    """A card's mean busy time in the traced window, in ms: the frozen
+    ``analyze``'s busy union, which sums each card's, over the cell's
+    ``chips`` cards, so that a card with no device events counts as idle.
+    (For one card, a division by 1.0, which returns the union exactly.)"""
+    return stats["busy_union_ms"] / chips
+
+
 def idle_share(ctx: dict) -> float | None:
-    """The share (%) of the traced window in which no device operation
-    ran: 1 - the busy union over the window's span; None without device
-    events."""
+    """A card's mean share (%) of the traced window in which it ran no
+    device operation: 1 - its mean busy time over the window's span; None
+    without device events."""
     t = ctx["trace"]
     if not t["device_events"] or not t["trace_span_ms"]:
         return None
-    return 100 * (1 - t["busy_union_ms"] / t["trace_span_ms"])
+    return 100 * (1 - mean_busy_ms(t, ctx["chips"]) / t["trace_span_ms"])
